@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port: the quickest proof that it runs.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (fails without one, and fails when run outside a
+checkout of the repository). Phases, each of which raises on failure:
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
+2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a;
+3. kernels: each of the four window front-end kernels against its plain
+   PyTorch version on the card, byte for byte, at the main path's shapes
+   (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384; group
+   over 256 rows with 8 kinds; trace over 256; route over 4096 rows with 9
+   buckets) and on edge cases; then timed with CUDA events against the plain
+   version and, where one exists, a single PyTorch call;
+4. the main path at real size: the ``tiered_grid`` scenario (WLCG's tier
+   shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8 agents, pool_cap
+   4096) through ``Engine.run_local`` on the card, with every launch count
+   set to 0 before and read after; no drops; byte-equal to the same run on
+   the CPU; its merged trace equal to the sequential oracle;
+5. the normal entry point, ``repro_torch.launch.simulate t0t1`` on the card
+   with 1 and 4 agents, equal to ``--device cpu``;
+6. a JSON line of the kernels, then the card's name and power limit, then
+   the result line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/event_select.cu"
+REPLACES = {
+    "select_events": "src/repro/kernels/event_select.py:51",
+    "group_by_kind": "src/repro/kernels/event_select.py:125",
+    "trace_rank": "src/repro/kernels/event_select.py:249",
+    "route_rank": "src/repro/kernels/event_select.py:287",
+}
+# H100 SXM: 3.35 TB/s of HBM; int32 ALU issue 64 ops/clk/SM x 132 SMs x
+# 1.98 GHz = 16.7 Tops/s (half the float32 lanes of the 67 TFLOP/s peak,
+# which counts an FMA as two operations).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.7e12
+
+# The tiered Grid's source: WLCG's tier shape (wlcg.web.cern.ch, "Tier
+# centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
+# Tier-2 sites per Tier-1; the builder calls of `simulate t0t1`.
+N_T1, T2_PER_T1 = 13, 4
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def tiered_grid(components, n_t1: int = N_T1, t2_per_t1: int = T2_PER_T1,
+                t1_count: int = 64, t2_count: int = 32):
+    """The tiered Grid through a ``components`` module's ScenarioBuilder
+    (any package with the reference's builder API). Returns the builder."""
+    c = components
+    b = c.ScenarioBuilder(max_cpu=16, queue_cap=32, max_link=4, max_flow=32)
+    b.add_regional_center(n_cpu=16, cpu_power=10.0, disk=20000.0,
+                          tape=200000.0, tape_rate=5.0)
+    for _ in range(n_t1):
+        t1 = b.add_regional_center(n_cpu=16, cpu_power=8.0, disk=2000.0,
+                                   tape=20000.0, tape_rate=5.0)
+
+        def payload(size):
+            return c.FLOW_START.pack(
+                size=size, l0=0, notify_lp=t1["farm"],
+                notify_kind=c.JOB_SUBMIT.id, notify2_lp=t1["storage"],
+                notify2_kind=c.DATA_WRITE.id)
+
+        wan = b.add_net_region([2.0, 2.0], [5, 5])
+        b.add_generator(target_lp=wan, kind=c.FLOW_START,
+                        payload=payload(40.0), interval=15, count=t1_count)
+        for _ in range(t2_per_t1):
+            wan2 = b.add_net_region([0.5, 0.5], [8, 8])
+            b.add_generator(target_lp=wan2, kind=c.FLOW_START,
+                            payload=payload(20.0), interval=30,
+                            count=t2_count)
+    return b
+
+
+def tiered_build_kw(n_agents: int = 8, pool_cap: int = 4096) -> dict:
+    return dict(n_agents=n_agents, lookahead=2, t_end=100_000,
+                pool_cap=pool_cap, work_per_mb=2.0)
+
+
+# --------------------------------------------------------------- phase 3
+def cuda_ms(fn, iters: int = 200) -> float:
+    """Mean time of ``fn()`` on the card, CUDA events after a warm-up."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def max_err(got, want) -> int:
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        g = g.cpu()
+        w = w.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        if not torch.equal(g, w):
+            raise AssertionError("kernel output differs from its plain "
+                                 "version")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def phase_kernels(es, ref) -> dict:
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    T_INF = 2**31 - 1
+    A = 8
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int32).to(dev)
+
+    err = {k: 0 for k in es.LAUNCHES}
+    # select: random keys with unsafe (T_INF) slots, all unsafe, all ties,
+    # exec_cap > cap, caps 1000 / 4096 / 16384
+    for cap, m, mode in [(4096, 256, "rand"), (1000, 256, "rand"),
+                         (16384, 256, "rand"), (4096, 256, "unsafe"),
+                         (4096, 256, "ties"), (1000, 1500, "rand"),
+                         (256, 256, "rand")]:
+        tk = ri(0, 64, (A, cap))
+        sq = ri(0, 1 << 20, (A, cap))
+        if mode == "rand":
+            tk = torch.where(ri(0, 4, (A, cap)) == 0, T_INF, tk)
+        elif mode == "unsafe":
+            tk = torch.full_like(tk, T_INF)
+        else:
+            tk = torch.full_like(tk, 7)
+            sq = torch.full_like(sq, 3)
+        err["select_events"] = max(err["select_events"], max_err(
+            es.select_events(tk, sq, m), ref.select_events(tk, sq, m)))
+        print(f"[kernels] select_events cap={cap} exec_cap={m} {mode}: equal",
+              flush=True)
+    # group: 256 rows, 8 kinds (also out-of-range kinds), all inactive,
+    # all one kind
+    for mode in ("rand", "inactive", "one_kind"):
+        kd = ri(-1, 10, (A, 256))
+        ac = ri(0, 2, (A, 256))
+        if mode == "inactive":
+            ac = torch.zeros_like(ac)
+        elif mode == "one_kind":
+            kd, ac = torch.full_like(kd, 3), torch.ones_like(ac)
+        err["group_by_kind"] = max(err["group_by_kind"], max_err(
+            es.group_by_kind(kd, ac, 8), ref.group_by_kind(kd, ac, 8)))
+        print(f"[kernels] group_by_kind m=256 n_kinds=8 {mode}: equal",
+              flush=True)
+    for mode in ("rand", "none", "all"):
+        mk = {"rand": ri(0, 2, (A, 256)),
+              "none": torch.zeros((A, 256), dtype=torch.int32, device=dev),
+              "all": torch.ones((A, 256), dtype=torch.int32, device=dev)}[mode]
+        err["trace_rank"] = max(err["trace_rank"], max_err(
+            es.trace_rank(mk), ref.trace_rank(mk)))
+        print(f"[kernels] trace_rank n=256 {mode}: equal", flush=True)
+    for mode in ("rand", "sentinel", "one"):
+        d = ri(0, 9, (A, 4096))
+        if mode == "sentinel":
+            d = torch.where(ri(0, 4, (A, 4096)) > 0, 8, d)
+        elif mode == "one":
+            d = torch.full_like(d, 2)
+        err["route_rank"] = max(err["route_rank"], max_err(
+            es.route_rank(d, 9), ref.route_rank(d)))
+        print(f"[kernels] route_rank n=4096 buckets=9 {mode}: equal",
+              flush=True)
+
+    # timing at the main path's shapes
+    cap, m, nk, n_emit, nb = 4096, 256, 8, 4096, 9
+    tk = torch.where(ri(0, 4, (A, cap)) == 0, T_INF, ri(0, 64, (A, cap)))
+    sq = ri(0, 1 << 20, (A, cap))
+    kd, ac = ri(0, nk, (A, m)), ri(0, 2, (A, m))
+    mk = ri(0, 2, (A, m))
+    dd = ri(0, nb, (A, n_emit))
+    key = torch.where(ac.bool(), kd, nk)
+    n_pad = 4096
+    stages = (n_pad.bit_length() - 1) * n_pad.bit_length() // 2
+    rows = {
+        "select_events": dict(
+            fn=lambda: es.select_events(tk, sq, m),
+            plain=lambda: ref.select_events(tk, sq, m), lib=None,
+            bytes=A * cap * 8 + A * m * 4, ops=A * (n_pad // 2) * stages),
+        "group_by_kind": dict(
+            fn=lambda: es.group_by_kind(kd, ac, nk),
+            plain=lambda: ref.group_by_kind(kd, ac, nk),
+            lib=lambda: torch.argsort(key, dim=1, stable=True),
+            bytes=A * m * 16 + A * nk * 4, ops=A * m * (nk + 1)),
+        "trace_rank": dict(
+            fn=lambda: es.trace_rank(mk), plain=lambda: ref.trace_rank(mk),
+            lib=lambda: torch.cumsum(mk, dim=1, dtype=torch.int32),
+            bytes=A * m * 8, ops=A * m),
+        "route_rank": dict(
+            fn=lambda: es.route_rank(dd, nb), plain=lambda: ref.route_rank(dd),
+            lib=None, bytes=A * n_emit * 8, ops=A * n_emit * nb),
+    }
+    out = {}
+    for name, r in rows.items():
+        ms = cuda_ms(r["fn"])
+        plain_ms = cuda_ms(r["plain"])
+        lib_ms = cuda_ms(r["lib"]) if r["lib"] is not None else None
+        bms, by = bound(r["bytes"], r["ops"])
+        out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        print(f"[kernels] {name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms,"
+              f" library {lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, "
+              f"bound {bms:.9f} ms ({by})", flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 4
+def state_equal(a, b) -> None:
+    """Byte equality of two port states (floats by bit pattern)."""
+    from repro_torch.convert import state_to_numpy
+    sa, sb = state_to_numpy(a), state_to_numpy(b)
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}.{k}")
+            return
+        if x.shape != y.shape or x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            raise AssertionError(f"state differs at {path}")
+
+    walk(sa, sb, "state")
+
+
+def phase_main_path(es, card: str) -> dict:
+    import torch
+    from repro_torch.core import components as comps
+    from repro_torch.core import Engine, merged_engine_trace, run_sequential
+    from repro_torch.core import monitoring as mon
+
+    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
+    print(f"[tiered_grid] {spec.n_lp} LPs, {spec.n_agents} agents, pool_cap "
+          f"{spec.pool_cap}, exec_cap {spec.exec_cap}, emit_cap "
+          f"{spec.emit_cap}, route_cap {spec.route_cap}", flush=True)
+    eng = Engine(world, own, init_ev, spec, trace_cap=65536, device="cuda")
+    torch.cuda.synchronize()
+    es.reset_launches()
+    t0 = time.perf_counter()
+    st = eng.run_local()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(es.LAUNCHES)
+    c = st.counters.sum(0).cpu()
+    windows, events = int(st.windows[0]), int(c[mon.C_EVENTS])
+    print(f"[tiered_grid] cuda: windows={windows} events={events} "
+          f"wall={wall:.3f} s events/s={events / wall:.1f} "
+          f"windows/s={windows / wall:.2f} launches={launches} "
+          f"({card})", flush=True)
+    for i in mon.DROP_COUNTERS + (mon.C_TRACE_DROP,):
+        if int(c[i]) != 0:
+            raise AssertionError(f"counter {mon.BUILTIN_COUNTERS[i][0]} = "
+                                 f"{int(c[i])}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+
+    t0 = time.perf_counter()
+    st_cpu = Engine(world, own, init_ev, spec, trace_cap=65536,
+                    device="cpu").run_local()
+    print(f"[tiered_grid] cpu reference run: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    state_equal(st, st_cpu)
+    print("[tiered_grid] cuda state == cpu state (trace, counters, world, "
+          "pool, ring cursors)", flush=True)
+
+    t0 = time.perf_counter()
+    _w, _c, want = run_sequential(world, own, init_ev, spec,
+                                  max_events=1_000_000)
+    got = merged_engine_trace(st.trace, st.trace_n)
+    # The reference's child_seq ids collide across generators here (an
+    # initial seq s equals child_seq(p, k) when s == 4p + k + 1), so events
+    # of different LPs can share (time, seq) and the (time, seq) merge order
+    # of such ties is arbitrary. Compare in full-row order.
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"merged engine trace ({len(got)} rows) != "
+                             f"sequential oracle ({len(want)} rows)")
+    ties = len(want) - len({(r[0], r[1]) for r in want})
+    print(f"[tiered_grid] merged trace == sequential oracle ({len(want)} "
+          f"events, {ties} rows share (time, seq) with another; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return dict(launches=launches, windows=windows, events=events, wall=wall)
+
+
+def phase_profile(card: str, start: int = 150, n: int = 20) -> None:
+    """Where a window's time goes on the main path: ``n`` windows of the
+    tiered Grid from window ``start`` on, first unprofiled, then under
+    torch.profiler (device busy share, kernels per window, host time of the
+    engine's labelled steps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import components as comps
+    from repro_torch.core import Engine
+
+    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
+    eng = Engine(world, own, init_ev, spec, trace_cap=65536, device="cuda")
+    st = eng.run_local(max_windows=start)
+
+    def steps(st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st = eng.step_local(st)
+        torch.cuda.synchronize()
+        return st, (time.perf_counter() - t0) / n * 1e3
+
+    st, plain_ms = steps(st)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, prof_ms = steps(st)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    print(f"[profile] windows {start}..{start + 2 * n}: {plain_ms:.3f} "
+          f"ms/window unprofiled, {prof_ms:.3f} ms/window profiled; "
+          f"{len(kern) / n:.1f} device ops/window, device busy "
+          f"{busy_ms:.3f} ms/window = {busy_ms / prof_ms:.4f} of the "
+          f"profiled wall ({card})", flush=True)
+    for e in sorted(prof.key_averages(), key=lambda e: e.key):
+        if e.key.startswith(("window.", "execute.")):
+            print(f"[profile] {e.key}: host {e.cpu_time_total / 1e3 / n:.3f} "
+                  f"ms/window, {e.count / n:.2f} calls/window", flush=True)
+
+
+def phase_entry_point(es) -> dict:
+    from repro_torch.launch import simulate
+    launches = {}
+    for agents in ("1", "4"):
+        es.reset_launches()
+        t0 = time.perf_counter()
+        got = simulate.main(["t0t1", "--agents", agents, "--device", "cuda"])
+        t_card = time.perf_counter() - t0
+        launches[agents] = dict(es.LAUNCHES)
+        want = simulate.main(["t0t1", "--agents", agents, "--device", "cpu"])
+        if got != want:
+            raise AssertionError(f"simulate t0t1 --agents {agents}: cuda "
+                                 f"{got} != cpu {want}")
+        print(f"[simulate] t0t1 --agents {agents}: cuda == cpu "
+              f"(cuda {t_card:.1f} s, launches {launches[agents]})",
+              flush=True)
+    if launches["4"]["route_rank"] == 0:
+        raise AssertionError("route_rank never launched with 4 agents")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import event_select as es
+    from repro_torch.kernels import ref
+
+    card = smi()
+    print(f"[device] {card}; torch {torch.__version__}; CUDA "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
+          flush=True)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"[build] {time.perf_counter() - t0:.2f} s -> {build.build_info['path']}",
+          flush=True)
+    timings = phase_kernels(es, ref)
+    main_run = phase_main_path(es, card)
+    phase_profile(card)
+    phase_entry_point(es)
+
+    kernels = []
+    for name, t in timings.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=KERNEL_SOURCE,
+            replaces=REPLACES[name], launches=main_run["launches"][name],
+            **t))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the conservative-window DES engine (``repro``).
+
+The JAX package ``repro`` stays the reference; this package keeps its module
+and function names so every counterpart is easy to find. The JAX vmap agent
+axis is an explicit leading tensor dimension ``A``, collectives are
+reductions and transposes over it, and the window loop is stepped from the
+host. The four Pallas kernels of the stitched window front end
+(``select_events``, ``group_by_kind``, ``trace_rank``, ``route_rank``) are
+hand-written CUDA kernels for Hopper (``kernels/csrc/event_select.cu``); a
+CPU tensor takes their plain PyTorch versions (``kernels/ref.py``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+from repro_torch.device import resolve_device  # noqa: F401

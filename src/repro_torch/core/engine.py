@@ -1,0 +1,403 @@
+"""The simulation engine: conservative-window superstep + host-stepped run
+loop (counterpart of ``repro.core.engine``, stitched front end).
+
+Per window, over all A agents at once (every tensor leads with A):
+
+  1-2. GVT: per-context local min pending time -> min over agents; the
+       safe mask is every event strictly below the horizon.
+  3.   Select: the first ``exec_cap`` slots of the stable (time, seq) sort
+       with unsafe slots keyed T_INF (``select_fn``, the ``select_events``
+       kernel on the card).
+  4.   Execute: conflict mask, ``group_fn`` (the ``group_by_kind`` kernel),
+       one batched handler evaluation merged by per-row delta scatters, the
+       sequential fallback for conflicted rows, the trace append
+       (``trace_fn``, the ``trace_rank`` kernel) and the emit compaction.
+  5-6. Route the emits by destination agent (``route_fn``, the
+       ``route_rank`` kernel) through an (A_src, A_dst, route_cap)
+       transpose, then insert them into the free ring.
+  7.   Owner-wins sync of the replicated world and the pool gauges.
+
+The reference runs this inside a jitted ``while_loop``; here the host steps
+one window at a time and syncs twice per window: it reads ``done``, and it
+reads one small tensor holding the conflict-fallback counts (the sequential
+fold's trip count), the kinds among the fallback rows and which kinds the
+clean rows hold. The reference evaluates every handler on every lane; the
+port skips the handlers of kinds that no lane holds, which no lane's result
+depends on. Steps are labelled for ``torch.profiler`` (``window.*``,
+``execute.*``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.core import events as ev
+from repro_torch.core import monitoring as mon
+from repro_torch.core import sync
+from repro_torch.core import tensor_util as tu
+from repro_torch.core.handlers import apply_handler, apply_handler_batch
+from repro_torch.core.registry import Ev, ScenarioSpec, registry_of
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+I32 = torch.int32
+
+
+class EngineState(NamedTuple):
+    world: tuple             # the registry's World, every field (A, ...)
+    pool: ev.EventPool
+    counters: torch.Tensor   # i32 (A, n_counters)
+    t_now: torch.Tensor      # i32 (A,)  agent LVT (== last horizon)
+    done: torch.Tensor       # bool (A,) (uniform over agents)
+    windows: torch.Tensor    # i32 (A,)
+    trace: torch.Tensor      # i32 (A, trace_cap, 4): (time, seq, kind, dst)
+    trace_n: torch.Tensor    # i32 (A,)  rows ever written
+    trace_tail: torch.Tensor  # i32 (A,) rows drained to the host (0 here)
+
+
+def _to(x, device):
+    return type(x)(*(t.to(device) for t in x))
+
+
+class Engine:
+    """Binds a built scenario to the superstep program on one device.
+
+    ``device=None`` means the CUDA card (a missing card raises); pass
+    ``device="cpu"`` to run on the CPU. The four hooks default to
+    ``kernels.ops``, which launches the CUDA kernels for tensors on the card.
+    """
+
+    def __init__(self, world, own, init_events: ev.EventBatch,
+                 spec: ScenarioSpec, trace_cap: int = 0,
+                 select_fn: Callable | None = None,
+                 group_fn: Callable | None = None,
+                 route_fn: Callable | None = None,
+                 trace_fn: Callable | None = None,
+                 device=None):
+        if spec.fused_select:
+            raise NotImplementedError(
+                "spec.fused_select=True is not ported yet (ROADMAP.md, port "
+                "queue, item 1: fused_select + ring_slots)")
+        if spec.merge_mode == "dense":
+            raise NotImplementedError(
+                "merge_mode='dense' is not ported yet (ROADMAP.md, port "
+                "queue, item 2: insert_ref/pop_mask_ref and the dense merge)")
+        if spec.insert_mode == "ref":
+            raise NotImplementedError(
+                "insert_mode='ref' is not ported yet (ROADMAP.md, port queue, "
+                "item 2: insert_ref/pop_mask_ref and the dense merge)")
+        if spec.merge_mode != "delta":
+            raise ValueError(f"spec.merge_mode must be 'delta' or 'dense', "
+                             f"got {spec.merge_mode!r}")
+        if spec.insert_mode != "ring":
+            raise ValueError(f"spec.insert_mode must be 'ring' or 'ref', got "
+                             f"{spec.insert_mode!r}")
+        self.device = resolve_device(device)
+        self.registry = registry_of(world)
+        self.world = _to(world, self.device)
+        self.own = _to(own, self.device)
+        self.init_events = _to(init_events, self.device)
+        self.spec = spec
+        _ = spec.exec_cap   # raises for an unported adaptive policy
+        self.trace_cap = trace_cap
+        self.select_fn = select_fn or ops.select_events
+        self.group_fn = group_fn or functools.partial(
+            ops.group_by_kind, n_kinds=self.registry.n_kinds)
+        self.route_fn = route_fn or functools.partial(
+            ops.route_rank, n_buckets=spec.n_agents + 1)
+        self.trace_fn = trace_fn or ops.trace_rank
+        self.table = self.registry.make_handlers(spec.lookahead,
+                                                 spec.work_per_mb)
+        self._n_res = self.registry.max_rows(world)
+        self._kind_table = torch.tensor(self.registry.kind_table, dtype=I32,
+                                        device=self.device)
+
+    # ------------------------------------------------------------------ init
+    def init_state(self) -> EngineState:
+        """Stacked (A, ...) initial state; initial events homed to owners."""
+        A, cap, dev = self.spec.n_agents, self.spec.pool_cap, self.device
+        init = self.init_events
+        owner = self.world.lp_agent[init.dst.clamp(0, self.spec.n_lp - 1)]
+        mine = init.valid[None] & (owner[None] == tu.arange(A, dev)[:, None])
+        batch = init.map(lambda x: x[None].expand((A,) + x.shape))
+        pool, dropped = ev.insert(ev.empty_pool(cap, A, dev),
+                                  batch._replace(valid=mine))
+        world = self.world.__class__(*(
+            x[None].expand((A,) + x.shape).contiguous() for x in self.world))
+        counters = torch.zeros((A, self.registry.n_counters), dtype=I32,
+                               device=dev)
+        counters[:, mon.C_DROP_POOL] = dropped
+        z = torch.zeros((A,), dtype=I32, device=dev)
+        return EngineState(
+            world=world, pool=pool, counters=counters, t_now=z.clone(),
+            done=torch.zeros((A,), dtype=torch.bool, device=dev),
+            windows=z.clone(),
+            trace=torch.zeros((A, max(self.trace_cap, 1), 4), dtype=I32,
+                              device=dev),
+            trace_n=z.clone(), trace_tail=z.clone())
+
+    # ------------------------------------------------------------- superstep
+    def _superstep(self, st: EngineState) -> EngineState:
+        """One conservative window for every agent."""
+        spec = self.spec
+        world, pool, counters = st.world, st.pool, st.counters
+        xcap = max(min(spec.exec_cap, spec.pool_cap), 1)
+
+        # 1-2. GVT + safe mask; 3. order (time, seq) + compact to the
+        # earliest exec_cap slots
+        with record_function("window.select"):
+            lmin = sync.local_min_per_ctx(pool, spec.n_ctx)
+            gvt = sync.global_min(lmin)
+            horizon = sync.horizons(gvt, spec.lookahead, spec.t_end)
+            done = sync.all_done(gvt, spec.t_end)
+            safe = sync.safe_mask(pool, horizon)
+            time_key = torch.where(safe, pool.time, ev.T_INF)
+            exec_idx = self.select_fn(time_key, pool.seq, xcap)
+            exec_safe = sync.exec_selection_ring(safe, exec_idx)
+            cand = ev.gather(pool, exec_idx)
+
+        # 4. execute
+        execute = (self._execute_batched if spec.batched_dispatch
+                   else self._execute_scan)
+        world, counters, emits, trace, trace_n = execute(
+            world, counters, cand, exec_safe, st.trace, st.trace_n)
+
+        with record_function("window.release"):
+            n_processed = tu.isum(exec_safe, 1)
+            n_spill = tu.isum(safe, 1) - n_processed
+            counters = mon.bump(counters, mon.C_EVENTS, n_processed)
+            counters = mon.bump(counters, mon.C_EXEC_SPILL, n_spill)
+            counters = mon.bump(counters, mon.C_WINDOWS, 1)
+            counters = mon.bump(counters, mon.C_RING_WRAP,
+                                pool.free_tail + n_processed >= spec.pool_cap)
+            pool = ev.release(pool, exec_idx, exec_safe)
+            # processed LPs drop back to WAITING at window end
+            world = world._replace(lp_state=torch.where(world.lp_state == 2,
+                                                        3, world.lp_state))
+
+        # 5-6. route + insert
+        with record_function("window.route_insert"):
+            pool, counters = self._route_and_insert(world, pool, counters,
+                                                    emits)
+
+        # 7. replicated-state sync, then the pool gauges
+        with record_function("window.sync"):
+            world = self.registry.sync_world(world, self.own)
+            counters = mon.gauge(counters, mon.C_POOL_OCC, ev.occupancy(pool))
+            counters = mon.gauge(counters, mon.C_POOL_FREE, pool.free_count)
+
+        return EngineState(world=world, pool=pool, counters=counters,
+                           t_now=torch.amax(horizon, dim=1), done=done,
+                           windows=st.windows + 1, trace=trace,
+                           trace_n=trace_n, trace_tail=st.trace_tail)
+
+    def _row_events(self, cand: ev.EventBatch, idx: torch.Tensor) -> Ev:
+        """One candidate row per agent (``idx`` (A,), clamped) as handler
+        lanes, lane ``a`` on agent ``a``."""
+        A, m = cand.time.shape
+        a = torch.arange(A, device=idx.device)
+        i = idx.clamp(0, m - 1).long()
+        return Ev(*(x[a, i] for x in cand[:7]), agent=a.to(I32))
+
+    # ------------------------------------------------- step 4: sequential fold
+    def _execute_scan(self, world, counters, cand: ev.EventBatch,
+                      exec_safe, trace, trace_n):
+        """``batched_dispatch=False``: the rows in (time, seq) order, one at a
+        time per agent. Safe rows form a prefix of the selection, so the fold
+        stops after the longest agent's safe prefix (one host read); the
+        remaining steps of the reference's scan change nothing."""
+        A, m = cand.time.shape
+        dev = cand.time.device
+        ecap = self.spec.emit_cap
+        emits = ev.empty_batch((A, ecap + 1), device=dev)
+        emit_n = torch.zeros((A,), dtype=I32, device=dev)
+        tcap = trace.shape[1]
+        a = torch.arange(A, device=dev)
+        # one host read: each agent's safe-prefix length and the row kinds
+        n_safe = tu.isum(exec_safe, 1)
+        host = torch.cat([n_safe, cand.kind.clamp(
+            0, self.registry.n_kinds - 1).reshape(-1)]).tolist()
+        n_safe_h, kinds_h = host[:A], host[A:]
+        for i in range(max(n_safe_h)):
+            is_safe = exec_safe[:, i]
+            kinds = {kinds_h[r * m + i] for r in range(A) if i < n_safe_h[r]}
+            e = self._row_events(cand, torch.full((A,), i, device=dev))
+            world, counters, out = apply_handler(self.table, world, counters,
+                                                 e, is_safe, kinds)
+            val = out.valid
+            pos = emit_n[:, None] + tu.icumsum(val, 1) - 1
+            ok = val & (pos < ecap)
+            widx = torch.where(ok, pos, ecap).long()
+            emits = ev.EventBatch(*(
+                x.index_put((a[:, None].expand_as(widx), widx), y)
+                for x, y in zip(emits, out._replace(valid=ok))))
+            emit_n = emit_n + tu.isum(val, 1)
+            counters = mon.bump(counters, mon.C_DROP_POOL,
+                                tu.isum(val & ~ok, 1))
+            trow = torch.stack([e.time, e.seq, e.kind, e.dst], 1)
+            tidx = torch.where(is_safe & (trace_n < tcap), trace_n, tcap)
+            trace = tu.scatter_rows(trace, tidx[:, None], trow[:, None])
+            if self.trace_cap > 0:
+                counters = mon.bump(counters, mon.C_TRACE_DROP,
+                                    (is_safe & (trace_n >= tcap)).to(I32))
+            trace_n = trace_n + is_safe.to(I32)
+        emits = emits.map(lambda x: x[:, :ecap])
+        return world, counters, emits, trace, trace_n
+
+    # -------------------------------------------- step 4: vectorized dispatch
+    def _execute_batched(self, world, counters, cand: ev.EventBatch,
+                         exec_safe, trace, trace_n):
+        """Grouped batched dispatch: conflict-free rows in one handler
+        evaluation, conflicted rows through a sequential fold compacted to
+        them. Emits land in a per-row (m, MAX_EMIT) matrix and the trace is
+        written in window order, so the result equals the sequential fold."""
+        spec = self.spec
+        A, xcap = cand.time.shape
+        dev = cand.time.device
+        nk = self.registry.n_kinds
+
+        table_id = self._kind_table[cand.kind.clamp(0, nk - 1).long()]
+        res = tu.gather_rows(world.lp_res, cand.dst.clamp(0, spec.n_lp - 1))
+        dirty = sync.conflict_mask(exec_safe, table_id, res,
+                                   n_res=self._n_res,
+                                   n_tables=self.registry.n_tables)
+        clean = exec_safe & ~dirty
+
+        # group the clean rows by kind (group_fn kernel); the conflicted rows
+        # in window order for the fallback
+        with record_function("execute.group"):
+            order, _rank, counts = self.group_fn(cand.kind, clean)
+        n_dirty = tu.isum(dirty, 1)
+        pos = tu.arange(xcap, dev)[None]
+        dpos = torch.sort(torch.where(dirty, pos, xcap), dim=1).values
+        dkind = torch.gather(cand.kind.clamp(0, nk - 1), 1,
+                             dpos.clamp(max=xcap - 1).long())
+        # the window's one host read besides `done`: which kinds the clean
+        # rows hold (handlers of absent kinds are not evaluated), and the
+        # fallback's trip count and row kinds
+        host = torch.cat([counts.amax(0), n_dirty, dkind.reshape(-1)]).tolist()
+        clean_kinds = {k for k in range(nk) if host[k] > 0}
+        n_dirty_h, dkind_h = host[nk:nk + A], host[nk + A:]
+
+        # batched phase over the grouped rows
+        order_l = order.long()
+        rows_g = ev.gather(cand, order_l)
+        clean_g = torch.gather(clean, 1, order_l)
+        with record_function("execute.batched"):
+            world, cdelta, emits_g = apply_handler_batch(
+                self.table, world, rows_g, clean_g, clean_kinds)
+        counters = counters + cdelta
+        counters = mon.bump(counters, mon.C_BATCH_EXEC, tu.isum(clean, 1))
+
+        # per-row emit matrix in window order (grouped lanes scattered back)
+        a_idx = torch.arange(A, device=dev)[:, None].expand(A, xcap)
+        emit_mat = emits_g.map(
+            lambda x: torch.zeros_like(x).index_put((a_idx, order_l), x))
+
+        # conflict fallback: sequential fold over each agent's dirty rows
+        counters = mon.bump(counters, mon.C_BATCH_FALLBACK, n_dirty)
+        a = torch.arange(A, device=dev)
+        for k in range(max(n_dirty_h)):
+            p = dpos[:, k]
+            active = k < n_dirty
+            kinds = {dkind_h[r * xcap + k] for r in range(A)
+                     if k < n_dirty_h[r]}
+            e = self._row_events(cand, p)
+            with record_function("execute.fallback"):
+                world, counters, out = apply_handler(
+                    self.table, world, counters, e, active, kinds)
+            # agents past their dirty rows write the spare column xcap
+            emit_mat = ev.EventBatch(*(
+                torch.cat([x, x[:, :1]], 1).index_put((a, p.long()), y)[
+                    :, :xcap]
+                for x, y in zip(emit_mat, out)))
+
+        # trace in (time, seq) window order (trace_fn kernel)
+        rows4 = torch.stack([cand.time, cand.seq, cand.kind, cand.dst], 2)
+        with record_function("execute.trace"):
+            trace, trace_n, clipped = ev.trace_append(
+                trace, trace_n, rows4, exec_safe, rank_fn=self.trace_fn)
+        if self.trace_cap > 0:
+            counters = mon.bump(counters, mon.C_TRACE_DROP, clipped)
+
+        # flatten the per-row matrix row-major (the sequential append order)
+        flat = emit_mat.map(
+            lambda x: x.reshape((A, xcap * ev.MAX_EMIT) + x.shape[3:]))
+        emits, _n_emit, dropped = ev.compact_batch(flat, spec.emit_cap)
+        counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
+        return world, counters, emits, trace, trace_n
+
+    # ---------------------------------------------------------------- routing
+    def _insert(self, pool: ev.EventPool, counters, batch: ev.EventBatch):
+        """Ring insert plus the head-wrap accounting."""
+        pool2, dropped = ev.insert(pool, batch)
+        n_take = pool.free_count - pool2.free_count
+        counters = mon.bump(counters, mon.C_RING_WRAP,
+                            pool.free_head + n_take >= self.spec.pool_cap)
+        return pool2, counters, dropped
+
+    def _route_and_insert(self, world, pool: ev.EventPool, counters,
+                          emits: ev.EventBatch):
+        """Route emits by destination agent and insert (steps 5-6). The
+        reference's ``all_to_all`` is a transpose of the (A_src, A_dst,
+        route_cap) buffer; receive order is ascending source agent."""
+        spec = self.spec
+        A = spec.n_agents
+        if A == 1:
+            pool, counters, dropped = self._insert(pool, counters, emits)
+            counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
+            counters = mon.bump(counters, mon.C_LP_LOCAL,
+                                tu.isum(emits.valid, 1))
+            return pool, counters
+
+        dev = emits.time.device
+        me = tu.arange(A, dev)[:, None]
+        rcap = spec.route_cap
+        dst_agent = torch.where(
+            emits.valid,
+            tu.gather_rows(world.lp_agent, emits.dst.clamp(0, spec.n_lp - 1)),
+            A)
+        rank = self.route_fn(dst_agent)
+
+        ok = emits.valid & (rank < rcap)
+        counters = mon.bump(counters, mon.C_DROP_ROUTE,
+                            tu.isum(emits.valid & ~ok, 1))
+        counters = mon.bump(counters, mon.C_MSGS_REMOTE,
+                            tu.isum(ok & (dst_agent != me), 1))
+        counters = mon.bump(counters, mon.C_LP_LOCAL,
+                            tu.isum(ok & (dst_agent == me), 1))
+        flat = torch.where(ok, dst_agent * rcap + rank, A * rcap)
+
+        # the all_to_all: scatter into (A_src, A_dst * route_cap), then
+        # transpose so agent d receives every source's block d in order
+        fills = (ev.T_INF, 0, 0, 0, 0, 0, 0.0, False)
+        bufs = [torch.full((A, A * rcap) + col.shape[2:], fill,
+                           dtype=col.dtype, device=dev)
+                for col, fill in zip(emits, fills)]
+        rx = ev.EventBatch(*(
+            b.reshape((A, A, rcap) + b.shape[2:]).transpose(0, 1).reshape(
+                (A, A * rcap) + b.shape[2:])
+            for b in tu.scatter_rows_many(bufs, flat, list(emits))))
+        pool, counters, dropped = self._insert(pool, counters, rx)
+        counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
+        return pool, counters
+
+    # ------------------------------------------------------------------- run
+    def step_local(self, st: EngineState) -> EngineState:
+        """One conservative window for every agent."""
+        return self._superstep(st)
+
+    def run_local(self, max_windows: int = 10_000,
+                  state: EngineState | None = None) -> EngineState:
+        """Step windows from the host until ``done`` (computed at the start
+        of a window, from the GVT before execution, exactly as the
+        reference's ``while_loop`` test) or ``max_windows``."""
+        st = self.init_state() if state is None else state
+        windows = int(st.windows[0])
+        while windows < max_windows and not bool(st.done[0]):
+            st = self._superstep(st)
+            windows += 1
+        return st

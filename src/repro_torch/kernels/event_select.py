@@ -1,0 +1,132 @@
+"""Wrappers of the CUDA window front-end kernels (``csrc/event_select.cu``).
+
+Counterpart of ``repro.kernels.event_select``: ``select_events`` /
+``sort_events`` (bitonic (time, seq) sort), ``group_by_kind`` (stable
+same-kind grouping), ``trace_rank`` (exclusive prefix count) and
+``route_rank`` (stable within-bucket ranks). Each wrapper checks device,
+dtype (int32), shape and contiguity, allocates its outputs with
+``torch.empty``, launches on the current stream, raises if the launch was
+refused, and adds one to its entry of :data:`LAUNCHES`. They take CUDA
+tensors only; ``ops`` sends CPU tensors to the plain versions in ``ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+# Per-kernel launch counts: the proof that a run went through the kernels.
+LAUNCHES = {"select_events": 0, "group_by_kind": 0, "trace_rank": 0,
+            "route_rank": 0}
+
+# 12 bytes per padded slot must fit one block's 227 KB of shared memory.
+MAX_SORT_SLOTS = 16384
+MAX_KINDS = 32
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name: str, *tensors: torch.Tensor) -> None:
+    shape = tensors[0].shape
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expects CUDA tensors, got {t.device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: expects int32, got {t.dtype}")
+        if t.ndim != 2 or t.shape != shape:
+            raise ValueError(f"{name}: expects matching (A, n) tensors, got "
+                             f"{[tuple(x.shape) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+    if shape[0] < 1 or shape[1] < 1:
+        raise ValueError(f"{name}: empty input {tuple(shape)}")
+
+
+def _launch(name: str, fn, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def select_events(time_key: torch.Tensor, seq: torch.Tensor,
+                  exec_cap: int) -> torch.Tensor:
+    """(A, cap) keys -> (A, min(exec_cap, cap)) slot indices: the prefix of
+    each agent's stable (time, seq) sort, ties broken by slot index."""
+    _check("select_events", time_key, seq)
+    A, cap = time_key.shape
+    n_pad = 1 << max((cap - 1).bit_length(), 1)
+    if n_pad > MAX_SORT_SLOTS:
+        raise ValueError(
+            f"select_events: pool_cap {cap} pads to {n_pad} slots; one block's "
+            f"shared memory holds at most {MAX_SORT_SLOTS}")
+    m = min(int(exec_cap), cap)
+    if m < 1:
+        raise ValueError(f"select_events: exec_cap must be >= 1, got "
+                         f"{exec_cap}")
+    out = torch.empty((A, m), dtype=torch.int32, device=time_key.device)
+    _launch("select_events", build.library().launch_select_events,
+            _ptr(time_key), _ptr(seq), _ptr(out), A, cap, n_pad, m)
+    return out
+
+
+def sort_events(time_key: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """(A, cap) keys -> (A, cap) permutation ascending by (time, seq)."""
+    return select_events(time_key, seq, time_key.shape[1])
+
+
+def group_by_kind(kind: torch.Tensor, active: torch.Tensor, n_kinds: int):
+    """(A, m) kinds and 0/1 active flags -> ``(order, rank, counts)``:
+    active rows first grouped by ascending kind (clipped into range) and
+    stable in position, inactive rows last; ``rank`` aligned with ``order``;
+    ``counts`` (A, n_kinds)."""
+    _check("group_by_kind", kind, active)
+    if not 1 <= n_kinds <= MAX_KINDS:
+        raise ValueError(f"group_by_kind: n_kinds must be in [1, {MAX_KINDS}]"
+                         f", got {n_kinds}")
+    A, m = kind.shape
+    order = torch.empty_like(kind)
+    rank = torch.empty_like(kind)
+    counts = torch.empty((A, n_kinds), dtype=torch.int32, device=kind.device)
+    _launch("group_by_kind", build.library().launch_group_by_kind,
+            _ptr(kind), _ptr(active), _ptr(order), _ptr(rank), _ptr(counts),
+            A, m, n_kinds)
+    return order, rank, counts
+
+
+def trace_rank(mask: torch.Tensor) -> torch.Tensor:
+    """(A, n) 0/1 mask -> (A, n) exclusive prefix counts."""
+    _check("trace_rank", mask)
+    A, n = mask.shape
+    out = torch.empty_like(mask)
+    _launch("trace_rank", build.library().launch_trace_rank,
+            _ptr(mask), _ptr(out), A, n)
+    return out
+
+
+def route_rank(dst_agent: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """(A, n) bucket ids -> (A, n) stable within-bucket ranks.
+
+    Key-range contract: every ``dst_agent`` value lies in
+    ``[0, n_buckets)`` (the engine passes agent ids with ``A`` as the
+    sentinel of invalid rows, so ``n_buckets = A + 1``); ``n_buckets`` is at
+    most the kernel's shared-memory key table. The plain version
+    ``ref.route_rank`` takes any keys."""
+    _check("route_rank", dst_agent)
+    lib = build.library()
+    if not 1 <= n_buckets <= lib.max_keys():
+        raise ValueError(f"route_rank: n_buckets must be in [1, "
+                         f"{lib.max_keys()}], got {n_buckets}")
+    A, n = dst_agent.shape
+    out = torch.empty_like(dst_agent)
+    _launch("route_rank", lib.launch_route_rank, _ptr(dst_agent), _ptr(out),
+            A, n, n_buckets)
+    return out
