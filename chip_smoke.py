@@ -8,19 +8,29 @@ checkout of the repository). Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a;
-3. kernels: each of the four window front-end kernels against its plain
-   PyTorch version on the card, byte for byte, at the main path's shapes
+3. kernels: each of the six window front-end kernels against its plain
+   PyTorch version on the card, byte for byte, at the main paths' shapes
    (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384; group
    over 256 rows with 8 kinds; trace over 256; route over 4096 rows with 9
-   buckets) and on edge cases; then timed with CUDA events against the plain
-   version and, where one exists, a single PyTorch call;
-4. the main path at real size: the ``tiered_grid`` scenario (WLCG's tier
-   shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8 agents, pool_cap
-   4096) through ``Engine.run_local`` on the card, with every launch count
-   set to 0 before and read after; no drops; byte-equal to the same run on
-   the CPU; its merged trace equal to the sequential oracle;
+   buckets; fused_select over pool_cap 4096 -> 256, also 1000 and 16384;
+   ring_slots over a 4096 ring and 4096 rows) and on edge cases; then
+   timed with CUDA events against the plain version, the bound and, where
+   one exists, a single PyTorch call;
+4. the stitched main path at real size: the ``tiered_grid`` scenario
+   (WLCG's tier shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8
+   agents, pool_cap 4096) through ``Engine.run_local`` on the card, with
+   every launch count set to 0 before and read after; no drops; byte-equal
+   to the same run on the CPU; its merged trace equal to the sequential
+   oracle;
+4b. the fused front end (``fused_select=True``) on the same scenario at the
+   same size: byte-equal to the stitched card run of phase 4, its merged
+   trace equal to the oracle, no drops, ``fused_select`` and ``ring_slots``
+   launched and ``select_events`` and ``group_by_kind`` not;
+   then both paths profiled over 20 windows;
 5. the normal entry point, ``repro_torch.launch.simulate t0t1`` on the card
-   with 1 and 4 agents, equal to ``--device cpu``;
+   with 1 and 4 agents, and with 4 agents under ``--fused-select`` and
+   under ``--insert-mode ref --merge-mode dense``, each equal to
+   ``--device cpu`` and to the stitched run;
 6. a JSON line of the kernels, then the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -40,6 +50,8 @@ REPLACES = {
     "group_by_kind": "src/repro/kernels/event_select.py:125",
     "trace_rank": "src/repro/kernels/event_select.py:249",
     "route_rank": "src/repro/kernels/event_select.py:287",
+    "ring_slots": "src/repro/kernels/event_select.py:185",
+    "fused_select": "src/repro/kernels/event_select.py:395",
 }
 # H100 SXM: 3.35 TB/s of HBM; int32 ALU issue 64 ops/clk/SM x 132 SMs x
 # 1.98 GHz = 16.7 Tops/s (half the float32 lanes of the 67 TFLOP/s peak,
@@ -197,6 +209,9 @@ def phase_kernels(es, ref) -> dict:
         print(f"[kernels] route_rank n=4096 buckets=9 {mode}: equal",
               flush=True)
 
+    err["ring_slots"] = check_ring_slots(es, ref, ri)
+    err["fused_select"] = check_fused_select(es, ref, ri, g)
+
     # timing at the main path's shapes
     cap, m, nk, n_emit, nb = 4096, 256, 8, 4096, 9
     tk = torch.where(ri(0, 4, (A, cap)) == 0, T_INF, ri(0, 64, (A, cap)))
@@ -207,11 +222,44 @@ def phase_kernels(es, ref) -> dict:
     key = torch.where(ac.bool(), kd, nk)
     n_pad = 4096
     stages = (n_pad.bit_length() - 1) * n_pad.bit_length() // 2
+    # the stable sort of the packed (time_key << 32) | seq key is one
+    # PyTorch call for select_events (both halves are non-negative, so the
+    # int64 order is the (time, seq) order; ties fall to the slot index as
+    # in the kernel); the pack is outside the timing
+    assert int(tk.min()) >= 0 and int(sq.min()) >= 0
+    packed = (tk.long() << 32) | sq.long()
+    assert torch.equal(torch.argsort(packed, dim=1, stable=True)[:, :m].int(),
+                       ref.select_events(tk, sq, m))
+    fs_in, fs_kw = fused_inputs(ri, g, A, cap, 0.6, 4000)
+    ring = torch.stack([torch.randperm(cap, generator=g)
+                        for _ in range(A)]).to(torch.int32).to(dev)
+    head = ri(0, cap, (A,))
+    want = ri(0, 2, (A, n_emit)).bool()
+    n_pay, fs_nk = fs_in[8].shape[-1], fs_kw["n_kinds"]
     rows = {
         "select_events": dict(
             fn=lambda: es.select_events(tk, sq, m),
-            plain=lambda: ref.select_events(tk, sq, m), lib=None,
+            plain=lambda: ref.select_events(tk, sq, m),
+            lib=lambda: torch.argsort(packed, dim=1, stable=True)[:, :m],
             bytes=A * cap * 8 + A * m * 4, ops=A * (n_pad // 2) * stages),
+        "fused_select": dict(
+            fn=lambda: es.fused_select(*fs_in, m, **fs_kw),
+            plain=lambda: ref.fused_select(*fs_in, m, **fs_kw), lib=None,
+            # reads time_key and seq over the pool, the cursor, and 7 int32
+            # columns, 2 bool and the payload of the m window lanes; writes
+            # 9 int32 columns, 3 bool and the payload of the window lanes
+            # and the per-kind counts
+            bytes=(A * (cap * 8 + 4 + m * (7 * 4 + 2 + 4 * n_pay))
+                   + A * m * (9 * 4 + 3 + 4 * n_pay) + A * fs_nk * 4),
+            # the sort network, the pairwise conflict compares, the ranks
+            ops=A * ((n_pad // 2) * stages + m * m + m * (fs_nk + 2))),
+        "ring_slots": dict(
+            fn=lambda: es.ring_slots(ring, head, want),
+            plain=lambda: ref.ring_slots(ring, head, want), lib=None,
+            # the wanted rows' ring entries (as many as are wanted, at most
+            # the ring), the head, the mask and the slots
+            bytes=(4 * int(want.sum(1).clamp(max=cap).sum())
+                   + A * (4 + n_emit * 5)), ops=A * n_emit * 2),
         "group_by_kind": dict(
             fn=lambda: es.group_by_kind(kd, ac, nk),
             plain=lambda: ref.group_by_kind(kd, ac, nk),
@@ -239,6 +287,101 @@ def phase_kernels(es, ref) -> dict:
     return out
 
 
+def fused_inputs(ri, g, A, cap, density, tail, one_key=False,
+                 no_table=False):
+    """Random (A, cap) pools for fused_select as the engine makes them: T_INF
+    time keys on unsafe slots, payloads with NaN and raw int32 patterns,
+    the conflict columns pool-wide. Returns (positional inputs, kwargs)."""
+    import torch
+    from repro_torch.core.components import BUILTIN
+    valid = ri(0, 10, (A, cap)) < 8
+    safe = valid & (ri(0, 1000, (A, cap)) < int(density * 1000))
+    tk = torch.where(safe, ri(0, 50, (A, cap)), 2**31 - 1)
+    payload = torch.randn((A, cap, 8), generator=g).to(tk.device)
+    payload[:, ::5, 3] = float("nan")
+    payload.view(torch.int32)[:, ::7, 5] = ri(-2**31, 2**31 - 1,
+                                              (A, len(range(0, cap, 7))))
+    payload.view(torch.int32)[:, ::11, 6] = 0x7fa00001   # a signalling NaN
+    table_id = ri(0, 4, (A, cap))
+    res = ri(0, 8, (A, cap))
+    if one_key:
+        table_id, res = torch.ones_like(table_id), torch.zeros_like(res)
+    if no_table:
+        table_id = torch.zeros_like(table_id)
+    free_tail = torch.full((A,), tail % cap, dtype=torch.int32,
+                           device=tk.device)
+    cols = (tk, ri(0, 1 << 20, (A, cap)), safe, ri(0, 50, (A, cap)),
+            ri(-1, 10, (A, cap)), ri(0, 16, (A, cap)), ri(0, 16, (A, cap)),
+            ri(0, 4, (A, cap)), payload, valid, table_id, res, free_tail)
+    return cols, dict(n_kinds=BUILTIN.n_kinds, n_res=8)
+
+
+def fused_equal(got, want) -> int:
+    """Two ``(FusedSelect, counts)`` results: every field byte-equal (floats
+    by bit pattern), rel_pos on the safe lanes, and the per-kind counts."""
+    import torch
+    (got, got_counts), (want, want_counts) = got, want
+    max_err(got_counts, want_counts)
+    safe = want.exec_safe.cpu()
+    for name in want._fields:
+        gv, wv = getattr(got, name).cpu(), getattr(want, name).cpu()
+        if gv.shape != wv.shape or gv.dtype != wv.dtype:
+            raise AssertionError(f"fused_select {name}: {gv.shape} "
+                                 f"{gv.dtype} vs {wv.shape} {wv.dtype}")
+        if gv.dtype == torch.float32:
+            gv, wv = gv.view(torch.int32), wv.view(torch.int32)
+        if name == "rel_pos":
+            gv, wv = gv[safe], wv[safe]
+        if not torch.equal(gv, wv):
+            raise AssertionError(f"fused_select {name} differs from its "
+                                 f"plain version")
+    return 0
+
+
+def check_fused_select(es, ref, ri, g) -> int:
+    """fused_select against its plain version: the main path's shape, other
+    caps and the edge cases."""
+    A = 8
+    cases = [  # (cap, exec_cap, safe density, free_tail, what)
+        (4096, 256, 0.6, 17, "main path"), (1000, 256, 0.6, 990, "cap 1000"),
+        (16384, 256, 0.6, 5, "cap 16384"), (1000, 1500, 0.6, 3,
+                                            "exec_cap > cap"),
+        (777, 1, 0.5, 776, "m = 1"), (4096, 256, 0.0, 9, "no safe slot"),
+        (4096, 4096, 1.0, 4095, "all safe, m = cap, ring wraps"),
+        (4096, 256, 0.9, 4090, "one rkey"), (4096, 256, 0.9, 1,
+                                             "table_id 0")]
+    for cap, xcap, dens, tail, what in cases:
+        cols, kw = fused_inputs(ri, g, A, cap, dens, tail,
+                                one_key=what == "one rkey",
+                                no_table=what == "table_id 0")
+        fused_equal(es.fused_select(*cols, xcap, **kw),
+                    ref.fused_select(*cols, xcap, **kw))
+        print(f"[kernels] fused_select cap={cap} exec_cap={xcap} {what}: "
+              f"equal", flush=True)
+    return 0
+
+
+def check_ring_slots(es, ref, ri) -> int:
+    """ring_slots against its plain version on every row: a 4096 ring,
+    4096 received rows, heads near the end of the ring."""
+    import torch
+    A, cap, n = 8, 4096, 4096
+    heads = ri(0, cap, (A,))
+    ring = torch.stack([torch.randperm(cap) for _ in range(A)]).to(
+        torch.int32).to(heads.device)
+    for head_lo, mode in ((0, "rand"), (cap - 8, "rand"), (cap - 3, "all"),
+                          (cap - 1, "none"), (100, "all")):
+        head = ri(head_lo, cap, (A,))
+        want = {"rand": ri(0, 2, (A, n)) > 0,
+                "all": ri(1, 2, (A, n)) > 0,
+                "none": ri(0, 1, (A, n)) > 0}[mode]
+        max_err(es.ring_slots(ring, head, want), ref.ring_slots(ring, head,
+                                                                want))
+        print(f"[kernels] ring_slots cap={cap} n={n} head>={head_lo} want "
+              f"{mode}: equal", flush=True)
+    return 0
+
+
 # --------------------------------------------------------------- phase 4
 def state_equal(a, b) -> None:
     """Byte equality of two port states (floats by bit pattern)."""
@@ -256,15 +399,19 @@ def state_equal(a, b) -> None:
     walk(sa, sb, "state")
 
 
-def phase_main_path(es, card: str) -> dict:
+def run_tiered(es, card: str, fused: bool):
+    """The tiered Grid on the card with the launch counts read around the
+    run; raises on a drop. Returns (state, launches, numbers)."""
     import torch
     from repro_torch.core import components as comps
-    from repro_torch.core import Engine, merged_engine_trace, run_sequential
+    from repro_torch.core import Engine
     from repro_torch.core import monitoring as mon
 
-    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
-    print(f"[tiered_grid] {spec.n_lp} LPs, {spec.n_agents} agents, pool_cap "
-          f"{spec.pool_cap}, exec_cap {spec.exec_cap}, emit_cap "
+    world, own, init_ev, spec = tiered_grid(comps).build(
+        **tiered_build_kw(), fused_select=fused)
+    label = "fused" if fused else "stitched"
+    print(f"[tiered_grid] {label}: {spec.n_lp} LPs, {spec.n_agents} agents, "
+          f"pool_cap {spec.pool_cap}, exec_cap {spec.exec_cap}, emit_cap "
           f"{spec.emit_cap}, route_cap {spec.route_cap}", flush=True)
     eng = Engine(world, own, init_ev, spec, trace_cap=65536, device="cuda")
     torch.cuda.synchronize()
@@ -276,7 +423,7 @@ def phase_main_path(es, card: str) -> dict:
     launches = dict(es.LAUNCHES)
     c = st.counters.sum(0).cpu()
     windows, events = int(st.windows[0]), int(c[mon.C_EVENTS])
-    print(f"[tiered_grid] cuda: windows={windows} events={events} "
+    print(f"[tiered_grid] {label} cuda: windows={windows} events={events} "
           f"wall={wall:.3f} s events/s={events / wall:.1f} "
           f"windows/s={windows / wall:.2f} launches={launches} "
           f"({card})", flush=True)
@@ -284,7 +431,38 @@ def phase_main_path(es, card: str) -> dict:
         if int(c[i]) != 0:
             raise AssertionError(f"counter {mon.BUILTIN_COUNTERS[i][0]} = "
                                  f"{int(c[i])}")
-    missing = [k for k, v in launches.items() if v == 0]
+    return st, launches, dict(windows=windows, events=events, wall=wall)
+
+
+def phase_fused_path(es, card: str, stitched) -> dict:
+    """Phase 4b: the fused front end at full size, against the stitched
+    card run and the oracle."""
+    from repro_torch.core import merged_engine_trace
+    st, launches, nums = run_tiered(es, card, fused=True)
+    for k in ("fused_select", "ring_slots", "trace_rank", "route_rank"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k} never launched on the fused path")
+    for k in ("select_events", "group_by_kind"):
+        if launches[k] != 0:
+            raise AssertionError(f"{k} launched on the fused path")
+    state_equal(st, stitched["state"])
+    print("[tiered_grid] fused cuda state == stitched cuda state (trace, "
+          "counters, world, pool, ring cursors)", flush=True)
+    got = merged_engine_trace(st.trace, st.trace_n)
+    if sorted(got) != stitched["oracle"]:
+        raise AssertionError("fused merged trace != sequential oracle")
+    print("[tiered_grid] fused merged trace == sequential oracle", flush=True)
+    return dict(launches=launches, **nums)
+
+
+def phase_main_path(es, card: str) -> dict:
+    from repro_torch.core import components as comps
+    from repro_torch.core import Engine, merged_engine_trace, run_sequential
+
+    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
+    st, launches, nums = run_tiered(es, card, fused=False)
+    missing = [k for k in ("select_events", "group_by_kind", "trace_rank",
+                           "route_rank") if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -313,12 +491,13 @@ def phase_main_path(es, card: str) -> dict:
     print(f"[tiered_grid] merged trace == sequential oracle ({len(want)} "
           f"events, {ties} rows share (time, seq) with another; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    return dict(launches=launches, windows=windows, events=events, wall=wall)
+    return dict(launches=launches, state=st, oracle=sorted(want), **nums)
 
 
-def phase_profile(card: str, start: int = 150, n: int = 20) -> None:
-    """Where a window's time goes on the main path: ``n`` windows of the
-    tiered Grid from window ``start`` on, first unprofiled, then under
+def phase_profile(card: str, fused: bool, start: int = 150,
+                  n: int = 20) -> None:
+    """Where a window's time goes on a path: ``n`` windows of the tiered
+    Grid from window ``start`` on, first unprofiled, then under
     torch.profiler (device busy share, kernels per window, host time of the
     engine's labelled steps)."""
     import torch
@@ -327,9 +506,11 @@ def phase_profile(card: str, start: int = 150, n: int = 20) -> None:
     from repro_torch.core import components as comps
     from repro_torch.core import Engine
 
-    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
+    world, own, init_ev, spec = tiered_grid(comps).build(
+        **tiered_build_kw(), fused_select=fused)
     eng = Engine(world, own, init_ev, spec, trace_cap=65536, device="cuda")
     st = eng.run_local(max_windows=start)
+    tag = "[profile fused]" if fused else "[profile stitched]"
 
     def steps(st):
         torch.cuda.synchronize()
@@ -345,35 +526,47 @@ def phase_profile(card: str, start: int = 150, n: int = 20) -> None:
         st, prof_ms = steps(st)
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
-    print(f"[profile] windows {start}..{start + 2 * n}: {plain_ms:.3f} "
+    print(f"{tag} windows {start}..{start + 2 * n}: {plain_ms:.3f} "
           f"ms/window unprofiled, {prof_ms:.3f} ms/window profiled; "
           f"{len(kern) / n:.1f} device ops/window, device busy "
           f"{busy_ms:.3f} ms/window = {busy_ms / prof_ms:.4f} of the "
           f"profiled wall ({card})", flush=True)
     for e in sorted(prof.key_averages(), key=lambda e: e.key):
         if e.key.startswith(("window.", "execute.")):
-            print(f"[profile] {e.key}: host {e.cpu_time_total / 1e3 / n:.3f} "
+            print(f"{tag} {e.key}: host {e.cpu_time_total / 1e3 / n:.3f} "
                   f"ms/window, {e.count / n:.2f} calls/window", flush=True)
 
 
 def phase_entry_point(es) -> dict:
     from repro_torch.launch import simulate
-    launches = {}
-    for agents in ("1", "4"):
+    launches, lines = {}, {}
+    runs = {"1": ["--agents", "1"], "4": ["--agents", "4"],
+            "4 fused": ["--agents", "4", "--fused-select"],
+            "4 ref dense": ["--agents", "4", "--insert-mode", "ref",
+                            "--merge-mode", "dense"]}
+    for name, flags in runs.items():
         es.reset_launches()
         t0 = time.perf_counter()
-        got = simulate.main(["t0t1", "--agents", agents, "--device", "cuda"])
+        got = simulate.main(["t0t1", *flags, "--device", "cuda"])
         t_card = time.perf_counter() - t0
-        launches[agents] = dict(es.LAUNCHES)
-        want = simulate.main(["t0t1", "--agents", agents, "--device", "cpu"])
+        launches[name] = dict(es.LAUNCHES)
+        want = simulate.main(["t0t1", *flags, "--device", "cpu"])
         if got != want:
-            raise AssertionError(f"simulate t0t1 --agents {agents}: cuda "
+            raise AssertionError(f"simulate t0t1 {' '.join(flags)}: cuda "
                                  f"{got} != cpu {want}")
-        print(f"[simulate] t0t1 --agents {agents}: cuda == cpu "
-              f"(cuda {t_card:.1f} s, launches {launches[agents]})",
+        if name.startswith("4 ") and got != lines["4"]:
+            raise AssertionError(f"simulate t0t1 {' '.join(flags)}: {got} "
+                                 f"!= the stitched run {lines['4']}")
+        lines[name] = got
+        print(f"[simulate] t0t1 {' '.join(flags)}: cuda == cpu"
+              f"{' == stitched' if name.startswith('4 ') else ''} "
+              f"(cuda {t_card:.1f} s, launches {launches[name]})",
               flush=True)
     if launches["4"]["route_rank"] == 0:
         raise AssertionError("route_rank never launched with 4 agents")
+    for k in ("fused_select", "ring_slots"):
+        if launches["4 fused"][k] == 0:
+            raise AssertionError(f"{k} never launched under --fused-select")
     return launches
 
 
@@ -397,15 +590,19 @@ def main() -> int:
           flush=True)
     timings = phase_kernels(es, ref)
     main_run = phase_main_path(es, card)
-    phase_profile(card)
+    fused_run = phase_fused_path(es, card, main_run)
+    phase_profile(card, fused=False)
+    phase_profile(card, fused=True)
     phase_entry_point(es)
 
+    # launches on each kernel's own path: the stitched run for the four
+    # stitched hooks, the fused run for fused_select and ring_slots
     kernels = []
     for name, t in timings.items():
+        run = fused_run if name in ("fused_select", "ring_slots") else main_run
         kernels.append(dict(
             name=name, route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES[name], launches=main_run["launches"][name],
-            **t))
+            replaces=REPLACES[name], launches=run["launches"][name], **t))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """The simulation engine: conservative-window superstep + host-stepped run
-loop (counterpart of ``repro.core.engine``, stitched front end).
+loop (counterpart of ``repro.core.engine``).
 
 Per window, over all A agents at once (every tensor leads with A):
 
@@ -16,6 +16,15 @@ Per window, over all A agents at once (every tensor leads with A):
        ``route_rank`` kernel) through an (A_src, A_dst, route_cap)
        transpose, then insert them into the free ring.
   7.   Owner-wins sync of the replicated world and the pool gauges.
+
+``spec.fused_select`` replaces the select, gather, conflict mask, grouping
+and release ranks of steps 3-4 with one ``fused_fn`` call (the
+``fused_select`` kernel on the card) and the insert's slot math with
+``slot_fn`` (the ``ring_slots`` kernel). ``spec.insert_mode="ref"`` inserts
+by an O(pool_cap) rank scan and reclaims by a pool-wide mask;
+``spec.merge_mode="dense"`` merges the batched handlers' writes through
+whole-table copies. All options give the same trace, counters and world;
+``insert_mode`` changes the slot layout and the ring diagnostics.
 
 The reference runs this inside a jitted ``while_loop``; here the host steps
 one window at a time and syncs twice per window: it reads ``done``, and it
@@ -38,10 +47,13 @@ from repro_torch.core import events as ev
 from repro_torch.core import monitoring as mon
 from repro_torch.core import sync
 from repro_torch.core import tensor_util as tu
-from repro_torch.core.handlers import apply_handler, apply_handler_batch
+from repro_torch.core.handlers import (apply_handler, apply_handler_batch,
+                                       apply_handler_batch_dense)
 from repro_torch.core.registry import Ev, ScenarioSpec, registry_of
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ref import FusedSelect
 
 I32 = torch.int32
 
@@ -62,12 +74,41 @@ def _to(x, device):
     return type(x)(*(t.to(device) for t in x))
 
 
+def fused_select_xla(time_key, seq, safe, time, kind, src, dst, ctx, payload,
+                     valid, table_id, res, free_tail, exec_cap: int, *,
+                     n_kinds: int, n_res: int, n_tables: int
+                     ) -> tuple[FusedSelect, torch.Tensor]:
+    """The stitched twin of the fused front end (the reference's
+    ``fused_select_xla``): the plain select, the safe flags, the field
+    gathers, ``sync.conflict_mask`` (a sort, where the plain
+    ``fused_select`` counts pairs), the plain grouping and the release
+    ranks. A drop-in ``fused_fn`` for tests; byte-equal to the kernel."""
+    cap = time_key.shape[-1]
+    m = max(min(exec_cap, cap), 1)
+    exec_idx = _ref.select_events(time_key, seq, m)
+    exec_safe = sync.exec_selection_ring(safe, exec_idx)
+    rows = ev.gather(ev.EventBatch(time, seq, kind, src, dst, ctx, payload,
+                                   valid), exec_idx)
+    dirty = sync.conflict_mask(exec_safe, tu.gather_rows(table_id, exec_idx),
+                               tu.gather_rows(res, exec_idx), n_res=n_res,
+                               n_tables=n_tables)
+    clean = exec_safe & ~dirty
+    order, _rank, counts = _ref.group_by_kind(rows.kind, clean, n_kinds)
+    w = exec_safe.to(I32)
+    rel = (free_tail.to(I32)[:, None] + tu.icumsum(w, 1) - w) % cap
+    return FusedSelect(exec_idx, exec_safe, *rows[:-1], valid=rows.valid,
+                       clean=clean, order=order, rel_pos=rel), counts
+
+
 class Engine:
     """Binds a built scenario to the superstep program on one device.
 
     ``device=None`` means the CUDA card (a missing card raises); pass
-    ``device="cpu"`` to run on the CPU. The four hooks default to
-    ``kernels.ops``, which launches the CUDA kernels for tensors on the card.
+    ``device="cpu"`` to run on the CPU. The hooks default to
+    ``kernels.ops``, which launches the CUDA kernels for tensors on the card:
+    ``select_fn``/``group_fn``/``route_fn``/``trace_fn`` always, and under
+    ``spec.fused_select`` ``fused_fn`` (with ``slot_fn``, unless a
+    ``fused_fn`` is given) in place of the select and the grouping.
     """
 
     def __init__(self, world, own, init_events: ev.EventBatch,
@@ -76,25 +117,18 @@ class Engine:
                  group_fn: Callable | None = None,
                  route_fn: Callable | None = None,
                  trace_fn: Callable | None = None,
+                 fused_fn: Callable | None = None,
+                 slot_fn: Callable | None = None,
                  device=None):
-        if spec.fused_select:
-            raise NotImplementedError(
-                "spec.fused_select=True is not ported yet (ROADMAP.md, port "
-                "queue, item 1: fused_select + ring_slots)")
-        if spec.merge_mode == "dense":
-            raise NotImplementedError(
-                "merge_mode='dense' is not ported yet (ROADMAP.md, port "
-                "queue, item 2: insert_ref/pop_mask_ref and the dense merge)")
-        if spec.insert_mode == "ref":
-            raise NotImplementedError(
-                "insert_mode='ref' is not ported yet (ROADMAP.md, port queue, "
-                "item 2: insert_ref/pop_mask_ref and the dense merge)")
-        if spec.merge_mode != "delta":
+        if spec.merge_mode not in ("delta", "dense"):
             raise ValueError(f"spec.merge_mode must be 'delta' or 'dense', "
                              f"got {spec.merge_mode!r}")
-        if spec.insert_mode != "ring":
+        if spec.insert_mode not in ("ring", "ref"):
             raise ValueError(f"spec.insert_mode must be 'ring' or 'ref', got "
                              f"{spec.insert_mode!r}")
+        if not isinstance(spec.fused_select, bool):
+            raise ValueError(f"spec.fused_select must be a bool, got "
+                             f"{spec.fused_select!r}")
         self.device = resolve_device(device)
         self.registry = registry_of(world)
         self.world = _to(world, self.device)
@@ -114,6 +148,19 @@ class Engine:
         self._n_res = self.registry.max_rows(world)
         self._kind_table = torch.tensor(self.registry.kind_table, dtype=I32,
                                         device=self.device)
+        # fused_fn(time_key, seq, safe, time, kind, src, dst, ctx, payload,
+        # valid, table_id, res, free_tail, exec_cap) -> (FusedSelect, the
+        # clean lanes' per-kind counts), used only under spec.fused_select;
+        # slot_fn(free_ring, free_head, want) -> insert slots, used by the
+        # ring insert whenever it is set
+        self.fused_fn = fused_fn
+        self.slot_fn = slot_fn
+        if spec.fused_select and fused_fn is None:
+            self.fused_fn = functools.partial(
+                ops.fused_select, n_kinds=self.registry.n_kinds,
+                n_res=self._n_res)
+            if slot_fn is None:
+                self.slot_fn = ops.ring_slots
 
     # ------------------------------------------------------------------ init
     def init_state(self) -> EngineState:
@@ -123,8 +170,11 @@ class Engine:
         owner = self.world.lp_agent[init.dst.clamp(0, self.spec.n_lp - 1)]
         mine = init.valid[None] & (owner[None] == tu.arange(A, dev)[:, None])
         batch = init.map(lambda x: x[None].expand((A,) + x.shape))
-        pool, dropped = ev.insert(ev.empty_pool(cap, A, dev),
-                                  batch._replace(valid=mine))
+        # an empty pool's ring is the identity, so both inserts assign the
+        # same ascending slots here
+        ins = ev.insert if self.spec.insert_mode == "ring" else ev.insert_ref
+        pool, dropped = ins(ev.empty_pool(cap, A, dev),
+                            batch._replace(valid=mine))
         world = self.world.__class__(*(
             x[None].expand((A,) + x.shape).contiguous() for x in self.world))
         counters = torch.zeros((A, self.registry.n_counters), dtype=I32,
@@ -155,15 +205,31 @@ class Engine:
             done = sync.all_done(gvt, spec.t_end)
             safe = sync.safe_mask(pool, horizon)
             time_key = torch.where(safe, pool.time, ev.T_INF)
-            exec_idx = self.select_fn(time_key, pool.seq, xcap)
-            exec_safe = sync.exec_selection_ring(safe, exec_idx)
-            cand = ev.gather(pool, exec_idx)
+            if spec.fused_select:
+                # select + gather + conflict + group + release ranks in one
+                # call; the conflict key columns are gathered pool-wide
+                tbl_pool = self._kind_table[pool.kind.clamp(
+                    0, self.registry.n_kinds - 1).long()]
+                res_pool = tu.gather_rows(world.lp_res,
+                                          pool.dst.clamp(0, spec.n_lp - 1))
+                fs, counts = self.fused_fn(
+                    time_key, pool.seq, safe, pool.time, pool.kind, pool.src,
+                    pool.dst, pool.ctx, pool.payload, pool.valid, tbl_pool,
+                    res_pool, pool.free_tail, xcap)
+                exec_idx, exec_safe = fs.exec_idx, fs.exec_safe
+                cand = ev.EventBatch(*fs[2:10])
+                pre, rel_pos = (fs.clean, fs.order, counts), fs.rel_pos
+            else:
+                exec_idx = self.select_fn(time_key, pool.seq, xcap)
+                exec_safe = sync.exec_selection_ring(safe, exec_idx)
+                cand = ev.gather(pool, exec_idx)
+                pre = rel_pos = None
 
         # 4. execute
         execute = (self._execute_batched if spec.batched_dispatch
                    else self._execute_scan)
         world, counters, emits, trace, trace_n = execute(
-            world, counters, cand, exec_safe, st.trace, st.trace_n)
+            world, counters, cand, exec_safe, st.trace, st.trace_n, pre=pre)
 
         with record_function("window.release"):
             n_processed = tu.isum(exec_safe, 1)
@@ -171,9 +237,16 @@ class Engine:
             counters = mon.bump(counters, mon.C_EVENTS, n_processed)
             counters = mon.bump(counters, mon.C_EXEC_SPILL, n_spill)
             counters = mon.bump(counters, mon.C_WINDOWS, 1)
-            counters = mon.bump(counters, mon.C_RING_WRAP,
-                                pool.free_tail + n_processed >= spec.pool_cap)
-            pool = ev.release(pool, exec_idx, exec_safe)
+            # reclaim: ring mode pushes the executed slots onto the ring's
+            # tail; ref mode invalidates them through a pool-wide mask
+            if spec.insert_mode == "ring":
+                counters = mon.bump(
+                    counters, mon.C_RING_WRAP,
+                    pool.free_tail + n_processed >= spec.pool_cap)
+                pool = ev.release(pool, exec_idx, exec_safe, pos=rel_pos)
+            else:
+                slot_mask, _ = sync.exec_selection(safe, exec_idx)
+                pool = ev.pop_mask_ref(pool, slot_mask)
             # processed LPs drop back to WAITING at window end
             world = world._replace(lp_state=torch.where(world.lp_state == 2,
                                                         3, world.lp_state))
@@ -204,11 +277,13 @@ class Engine:
 
     # ------------------------------------------------- step 4: sequential fold
     def _execute_scan(self, world, counters, cand: ev.EventBatch,
-                      exec_safe, trace, trace_n):
+                      exec_safe, trace, trace_n, pre=None):
         """``batched_dispatch=False``: the rows in (time, seq) order, one at a
         time per agent. Safe rows form a prefix of the selection, so the fold
         stops after the longest agent's safe prefix (one host read); the
-        remaining steps of the reference's scan change nothing."""
+        remaining steps of the reference's scan change nothing. ``pre`` (the
+        fused front end's conflict mask and grouping) is not needed here."""
+        del pre
         A, m = cand.time.shape
         dev = cand.time.device
         ecap = self.spec.emit_cap
@@ -249,27 +324,34 @@ class Engine:
 
     # -------------------------------------------- step 4: vectorized dispatch
     def _execute_batched(self, world, counters, cand: ev.EventBatch,
-                         exec_safe, trace, trace_n):
+                         exec_safe, trace, trace_n, pre=None):
         """Grouped batched dispatch: conflict-free rows in one handler
         evaluation, conflicted rows through a sequential fold compacted to
         them. Emits land in a per-row (m, MAX_EMIT) matrix and the trace is
-        written in window order, so the result equals the sequential fold."""
+        written in window order, so the result equals the sequential fold.
+        ``pre = (clean, order, counts)`` comes from the fused front end."""
         spec = self.spec
         A, xcap = cand.time.shape
         dev = cand.time.device
         nk = self.registry.n_kinds
 
-        table_id = self._kind_table[cand.kind.clamp(0, nk - 1).long()]
-        res = tu.gather_rows(world.lp_res, cand.dst.clamp(0, spec.n_lp - 1))
-        dirty = sync.conflict_mask(exec_safe, table_id, res,
-                                   n_res=self._n_res,
-                                   n_tables=self.registry.n_tables)
-        clean = exec_safe & ~dirty
-
-        # group the clean rows by kind (group_fn kernel); the conflicted rows
-        # in window order for the fallback
-        with record_function("execute.group"):
-            order, _rank, counts = self.group_fn(cand.kind, clean)
+        if pre is None:
+            table_id = self._kind_table[cand.kind.clamp(0, nk - 1).long()]
+            res = tu.gather_rows(world.lp_res,
+                                 cand.dst.clamp(0, spec.n_lp - 1))
+            dirty = sync.conflict_mask(exec_safe, table_id, res,
+                                       n_res=self._n_res,
+                                       n_tables=self.registry.n_tables)
+            clean = exec_safe & ~dirty
+            # group the clean rows by kind (group_fn kernel)
+            with record_function("execute.group"):
+                order, _rank, counts = self.group_fn(cand.kind, clean)
+        else:
+            # clean == exec_safe & ~dirty with dirty inside exec_safe
+            clean, order, counts = pre
+            dirty = exec_safe & ~clean
+        present = counts.amax(0)
+        # the conflicted rows in window order for the fallback
         n_dirty = tu.isum(dirty, 1)
         pos = tu.arange(xcap, dev)[None]
         dpos = torch.sort(torch.where(dirty, pos, xcap), dim=1).values
@@ -278,7 +360,7 @@ class Engine:
         # the window's one host read besides `done`: which kinds the clean
         # rows hold (handlers of absent kinds are not evaluated), and the
         # fallback's trip count and row kinds
-        host = torch.cat([counts.amax(0), n_dirty, dkind.reshape(-1)]).tolist()
+        host = torch.cat([present, n_dirty, dkind.reshape(-1)]).tolist()
         clean_kinds = {k for k in range(nk) if host[k] > 0}
         n_dirty_h, dkind_h = host[nk:nk + A], host[nk + A:]
 
@@ -286,9 +368,11 @@ class Engine:
         order_l = order.long()
         rows_g = ev.gather(cand, order_l)
         clean_g = torch.gather(clean, 1, order_l)
+        batch_fn = (apply_handler_batch if spec.merge_mode == "delta"
+                    else apply_handler_batch_dense)
         with record_function("execute.batched"):
-            world, cdelta, emits_g = apply_handler_batch(
-                self.table, world, rows_g, clean_g, clean_kinds)
+            world, cdelta, emits_g = batch_fn(self.table, world, rows_g,
+                                              clean_g, clean_kinds)
         counters = counters + cdelta
         counters = mon.bump(counters, mon.C_BATCH_EXEC, tu.isum(clean, 1))
 
@@ -332,8 +416,12 @@ class Engine:
 
     # ---------------------------------------------------------------- routing
     def _insert(self, pool: ev.EventPool, counters, batch: ev.EventBatch):
-        """Ring insert plus the head-wrap accounting."""
-        pool2, dropped = ev.insert(pool, batch)
+        """The spec's insert: the ring (through ``slot_fn`` when set) with
+        its head-wrap accounting, or the reference rank scan."""
+        if self.spec.insert_mode == "ref":
+            pool2, dropped = ev.insert_ref(pool, batch)
+            return pool2, counters, dropped
+        pool2, dropped = ev.insert(pool, batch, slot_fn=self.slot_fn)
         n_take = pool.free_count - pool2.free_count
         counters = mon.bump(counters, mon.C_RING_WRAP,
                             pool.free_head + n_take >= self.spec.pool_cap)

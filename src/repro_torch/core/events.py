@@ -138,19 +138,35 @@ def _scatter_batch(pool: EventPool, batch: EventBatch, idx: torch.Tensor,
     return pool._replace(**dict(zip(EventBatch._fields, new)))
 
 
-def insert(pool: EventPool, batch: EventBatch):
+def rebuild_ring(pool: EventPool) -> EventPool:
+    """Canonicalize the free ring from ``valid`` (O(cap), whole-pool paths):
+    free slots first in ascending order with ``head == 0``, live slots after
+    them, also ascending."""
+    ring = torch.sort(pool.valid.to(torch.uint8), dim=1,
+                      stable=True).indices.to(I32)
+    n_free = tu.isum(~pool.valid, 1)
+    return pool._replace(free_ring=ring, free_head=torch.zeros_like(n_free),
+                         free_tail=n_free % pool.cap, free_count=n_free)
+
+
+def insert(pool: EventPool, batch: EventBatch, slot_fn=None):
     """Insert ``batch`` (A, n) (masked rows skipped) into free pool slots.
 
     The r-th fitting row of agent ``a`` takes the slot at ring position
-    ``(free_head[a] + r) % cap``. Returns (pool', n_dropped (A,))."""
+    ``(free_head[a] + r) % cap``. ``slot_fn(free_ring, free_head, want)``
+    computes those slots for every wanted row (the ``ring_slots`` kernel);
+    the default is the gather below. Returns (pool', n_dropped (A,))."""
     cap = pool.cap
     want = batch.valid
     want_rank = tu.icumsum(want, 1) - 1
     n_want = tu.isum(want, 1)
     fits = want & (want_rank < pool.free_count[:, None])
     n_take = tu.isum(fits, 1)
-    pos = (pool.free_head[:, None] + want_rank.clamp_min(0)) % cap
-    dst_slot = torch.gather(pool.free_ring, 1, pos.long())
+    if slot_fn is None:
+        pos = (pool.free_head[:, None] + want_rank.clamp_min(0)) % cap
+        dst_slot = torch.gather(pool.free_ring, 1, pos.long())
+    else:
+        dst_slot = slot_fn(pool.free_ring, pool.free_head, want)
     idx = torch.where(fits, dst_slot, cap)
     pool = _scatter_batch(pool, batch, idx, fits)
     return pool._replace(
@@ -159,17 +175,50 @@ def insert(pool: EventPool, batch: EventBatch):
     ), n_want - n_take
 
 
-def release(pool: EventPool, slots: torch.Tensor, mask: torch.Tensor
-            ) -> EventPool:
+def insert_ref(pool: EventPool, batch: EventBatch):
+    """Reference insert (``insert_mode="ref"``): the r-th fitting row takes
+    the r-th free slot in ascending slot order, found by an O(cap) rank scan
+    of ``valid``. Keeps the same rows as :func:`insert`; only the slot layout
+    differs. Only ``free_count`` is kept exact: the ring and its cursors go
+    stale, as nothing in ref mode reads them. Returns (pool', n_dropped)."""
+    A, cap = pool.valid.shape
+    free = ~pool.valid
+    free_rank = tu.icumsum(free, 1) - 1
+    n_free = tu.isum(free, 1)
+    want = batch.valid
+    want_rank = tu.icumsum(want, 1) - 1
+    n_want = tu.isum(want, 1)
+    fits = want & (want_rank < n_free[:, None])
+    n_drop = n_want - tu.isum(fits, 1)
+    # rank -> slot: every live slot writes 0 at rank cap - 1, which no free
+    # slot holds unless the pool is empty (then no live slot writes there)
+    slots = tu.arange(cap, pool.valid.device)[None].expand(A, cap)
+    rank_to_slot = torch.zeros((A, cap), dtype=I32,
+                               device=pool.valid.device).scatter(
+        1, torch.where(free, free_rank, cap - 1).long(),
+        torch.where(free, slots, 0))
+    dst_slot = torch.gather(rank_to_slot, 1,
+                            want_rank.clamp(0, cap - 1).long())
+    idx = torch.where(fits, dst_slot, cap)
+    pool = _scatter_batch(pool, batch, idx, fits)
+    return pool._replace(free_count=pool.free_count - (n_want - n_drop)), \
+        n_drop
+
+
+def release(pool: EventPool, slots: torch.Tensor, mask: torch.Tensor,
+            pos: torch.Tensor | None = None) -> EventPool:
     """Reclaim executed slots: invalidate and push onto the ring's tail.
 
     ``slots`` (A, m) are distinct slot indices, ``mask`` flags the rows that
     executed; the r-th masked slot lands at ring position
-    ``(free_tail + r) % cap``."""
+    ``(free_tail + r) % cap``. ``pos`` supplies those positions when they
+    were computed already (the fused front end's ``rel_pos``); it must equal
+    them on every masked row."""
     cap = pool.cap
     n = tu.isum(mask, 1)
-    rank = tu.icumsum(mask, 1) - 1
-    pos = (pool.free_tail[:, None] + rank.clamp_min(0)) % cap
+    if pos is None:
+        rank = tu.icumsum(mask, 1) - 1
+        pos = (pool.free_tail[:, None] + rank.clamp_min(0)) % cap
     ring = tu.scatter_rows(pool.free_ring, torch.where(mask, pos, cap),
                            slots.to(I32))
     gone = torch.where(mask, slots, cap)
@@ -182,6 +231,30 @@ def release(pool: EventPool, slots: torch.Tensor, mask: torch.Tensor
         free_tail=(pool.free_tail + n) % cap,
         free_count=pool.free_count + n,
     )
+
+
+def extract(pool: EventPool, mask: torch.Tensor) -> EventBatch:
+    """Pool rows as a routable batch, valid where live and masked (slot
+    order)."""
+    return EventBatch(*(getattr(pool, f) for f in EventBatch._fields[:-1]),
+                      valid=pool.valid & mask)
+
+
+def pop_mask(pool: EventPool, mask: torch.Tensor) -> EventPool:
+    """Invalidate the masked slots and canonicalize the free ring."""
+    gone = pool.valid & mask
+    pool = pool._replace(time=torch.where(gone, T_INF, pool.time),
+                         valid=pool.valid & ~mask)
+    return rebuild_ring(pool)
+
+
+def pop_mask_ref(pool: EventPool, mask: torch.Tensor) -> EventPool:
+    """Invalidate the masked slots, keeping only ``free_count`` exact (the
+    ``insert_mode="ref"`` reclaim)."""
+    gone = pool.valid & mask
+    return pool._replace(time=torch.where(gone, T_INF, pool.time),
+                         valid=pool.valid & ~mask,
+                         free_count=pool.free_count + tu.isum(gone, 1))
 
 
 def gather(pool: EventPool, idx: torch.Tensor) -> EventBatch:

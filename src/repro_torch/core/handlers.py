@@ -438,16 +438,10 @@ def _mark_processed(world, e: Ev, active):
         lp_state=tu.scatter_lanes(world.lp_state, e.agent, dst, 2))
 
 
-def apply_handler_batch(table, world, rows: ev.EventBatch,
-                        active: torch.Tensor, kinds=None):
-    """Dispatch a window's (A, m) candidate rows through one batched handler
-    evaluation and merge with per-row segment scatters.
-
-    The caller guarantees that the ``active`` rows of an agent declare
-    pairwise-distinct component rows (``sync.conflict_mask``), so the merge
-    is exact; ``kinds`` lists the kinds of the active rows (default: all).
-    Returns ``(world', counter_delta (A, n), emits (A, m, MAX_EMIT))``; the
-    counter delta includes C_BATCH_ROWS."""
+def _apply_batch(table, world, rows: ev.EventBatch, active: torch.Tensor,
+                 kinds, merge):
+    """One batched handler evaluation over a window's (A, m) rows; ``merge``
+    writes the masked lane deltas into the world."""
     A, m = rows.time.shape
     n_counters = registry_of(world).n_counters
     agent = torch.arange(A, dtype=i32, device=rows.time.device)
@@ -459,7 +453,7 @@ def apply_handler_batch(table, world, rows: ev.EventBatch,
                                                       n_counters, kinds)
     masked = _mask_lanes(world, delta, act)
     n_rows = _count_rows(world, masked, agent, A)
-    world = apply_delta(world, masked, agent)
+    world = merge(world, masked, agent, act)
     cdelta = torch.where(act[:, None], lanes_counters, 0).reshape(
         A, m, n_counters).sum(1, dtype=i32)
     cdelta[:, mon.C_BATCH_ROWS] += n_rows
@@ -467,3 +461,54 @@ def apply_handler_batch(table, world, rows: ev.EventBatch,
     out = lanes_out._replace(valid=lanes_out.valid & act[:, None])
     return world, cdelta, out.map(
         lambda x: x.reshape((A, m) + x.shape[1:]))
+
+
+def apply_handler_batch(table, world, rows: ev.EventBatch,
+                        active: torch.Tensor, kinds=None):
+    """Dispatch a window's (A, m) candidate rows through one batched handler
+    evaluation and merge with per-row segment scatters.
+
+    The caller guarantees that the ``active`` rows of an agent declare
+    pairwise-distinct component rows (``sync.conflict_mask``), so the merge
+    is exact; ``kinds`` lists the kinds of the active rows (default: all).
+    Returns ``(world', counter_delta (A, n), emits (A, m, MAX_EMIT))``; the
+    counter delta includes C_BATCH_ROWS."""
+    return _apply_batch(table, world, rows, active, kinds,
+                        lambda w, d, agent, _act: apply_delta(w, d, agent))
+
+
+def _merge_dense(world, masked, agent, act):
+    """Every lane writes its delta into a full copy of its agent's tables;
+    each element then takes the copy of the first active lane (in lane
+    order) that differs from the base (``!=``, so an equal write keeps the
+    base's bytes and a NaN base takes the first active lane's copy), else
+    the base."""
+    A = world.lp_kind.shape[0]
+    n = agent.shape[0]
+    m = n // A
+    lane = torch.arange(n, dtype=i32, device=agent.device)
+    pos = tu.arange(m, agent.device)
+    out = {}
+    for f, rf in registry_of(world).delta_schema.items():
+        if f not in masked:
+            continue    # no lane's kind writes it: every copy is the base
+        base = getattr(world, f)
+        copies = tu.scatter_lanes(base[agent.long()], lane, masked[rf],
+                                  masked[f])
+        copies = copies.reshape((A, m) + base.shape[1:])
+        ones = (1,) * (base.ndim - 1)
+        changed = (act.reshape((A, m) + ones)
+                   & (copies != base[:, None]))
+        first = torch.where(changed, pos.reshape((1, m) + ones), m).amin(1)
+        picked = torch.gather(copies, 1,
+                              first.clamp(max=m - 1).long()[:, None])[:, 0]
+        out[f] = torch.where(first < m, picked, base)
+    return world._replace(**out)
+
+
+def apply_handler_batch_dense(table, world, rows: ev.EventBatch,
+                              active: torch.Tensor, kinds=None):
+    """:func:`apply_handler_batch` with the whole-table merge of
+    ``merge_mode="dense"`` (O(lanes x tables), the reference merge the
+    per-row delta scatter replaced)."""
+    return _apply_batch(table, world, rows, active, kinds, _merge_dense)

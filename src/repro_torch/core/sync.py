@@ -77,3 +77,12 @@ def exec_selection_ring(safe: torch.Tensor, exec_idx: torch.Tensor
     """Execution flags of the compacted candidates (safe slots beyond
     exec_cap stay in the pool and spill to the next window)."""
     return torch.gather(safe, 1, exec_idx.long())
+
+
+def exec_selection(safe: torch.Tensor, exec_idx: torch.Tensor):
+    """``(slot_mask, exec_safe)``: the pool slots executed this window and
+    the execution flags of the compacted candidates (the reclaim mask of
+    ``insert_mode="ref"``). ``exec_idx`` holds distinct slots per agent."""
+    exec_safe = exec_selection_ring(safe, exec_idx)
+    slot_mask = torch.zeros_like(safe).scatter(1, exec_idx.long(), exec_safe)
+    return slot_mask, exec_safe

@@ -27,6 +27,8 @@ _SIGNATURES = {
     "launch_group_by_kind": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "launch_trace_rank": [_P, _P, _I, _I, _P],
     "launch_route_rank": [_P, _P, _I, _I, _I, _P],
+    "launch_ring_slots": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "launch_fused_select": [_P] * 27 + [_I] * 7 + [_P],
     "max_keys": [],
 }
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.kernels.event_select``: ``select_events`` /
 ``sort_events`` (bitonic (time, seq) sort), ``group_by_kind`` (stable
-same-kind grouping), ``trace_rank`` (exclusive prefix count) and
-``route_rank`` (stable within-bucket ranks). Each wrapper checks device,
-dtype (int32), shape and contiguity, allocates its outputs with
+same-kind grouping), ``trace_rank`` (exclusive prefix count),
+``route_rank`` (stable within-bucket ranks), ``ring_slots`` (free-ring
+insert slots) and ``fused_select`` (the whole window front end). Each
+wrapper checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises if the launch was
 refused, and adds one to its entry of :data:`LAUNCHES`. They take CUDA
 tensors only; ``ops`` sends CPU tensors to the plain versions in ``ref``.
@@ -14,10 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import FusedSelect
 
 # Per-kernel launch counts: the proof that a run went through the kernels.
 LAUNCHES = {"select_events": 0, "group_by_kind": 0, "trace_rank": 0,
-            "route_rank": 0}
+            "route_rank": 0, "ring_slots": 0, "fused_select": 0}
 
 # 12 bytes per padded slot must fit one block's 227 KB of shared memory.
 MAX_SORT_SLOTS = 16384
@@ -29,20 +31,41 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(name: str, *tensors: torch.Tensor) -> None:
-    shape = tensors[0].shape
+def _check(name: str, *tensors: torch.Tensor, dtype=torch.int32,
+           shape=None) -> None:
+    """CUDA, ``dtype``, contiguous, all of one non-empty ``shape`` (default:
+    the first tensor's, which must be (A, n))."""
+    shape = tuple(tensors[0].shape) if shape is None else tuple(shape)
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: expects CUDA tensors, got {t.device}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: expects int32, got {t.dtype}")
-        if t.ndim != 2 or t.shape != shape:
-            raise ValueError(f"{name}: expects matching (A, n) tensors, got "
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expects {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape or len(shape) < 2:
+            raise ValueError(f"{name}: expects matching {shape} tensors, got "
                              f"{[tuple(x.shape) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
-    if shape[0] < 1 or shape[1] < 1:
-        raise ValueError(f"{name}: empty input {tuple(shape)}")
+    if min(shape) < 1:
+        raise ValueError(f"{name}: empty input {shape}")
+
+
+def _check_cursor(name: str, x: torch.Tensor, n_agents: int) -> None:
+    """An (A,) int32 ring cursor on the card (read by the kernel there)."""
+    if not x.is_cuda or x.dtype != torch.int32 or tuple(x.shape) != (
+            n_agents,) or not x.is_contiguous():
+        raise ValueError(f"{name}: expects a contiguous CUDA int32 "
+                         f"({n_agents},) cursor, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _sort_pad(name: str, cap: int) -> int:
+    n_pad = 1 << max((cap - 1).bit_length(), 1)
+    if n_pad > MAX_SORT_SLOTS:
+        raise ValueError(
+            f"{name}: pool_cap {cap} pads to {n_pad} slots; one block's "
+            f"shared memory holds at most {MAX_SORT_SLOTS}")
+    return n_pad
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -63,11 +86,7 @@ def select_events(time_key: torch.Tensor, seq: torch.Tensor,
     each agent's stable (time, seq) sort, ties broken by slot index."""
     _check("select_events", time_key, seq)
     A, cap = time_key.shape
-    n_pad = 1 << max((cap - 1).bit_length(), 1)
-    if n_pad > MAX_SORT_SLOTS:
-        raise ValueError(
-            f"select_events: pool_cap {cap} pads to {n_pad} slots; one block's "
-            f"shared memory holds at most {MAX_SORT_SLOTS}")
+    n_pad = _sort_pad("select_events", cap)
     m = min(int(exec_cap), cap)
     if m < 1:
         raise ValueError(f"select_events: exec_cap must be >= 1, got "
@@ -130,3 +149,66 @@ def route_rank(dst_agent: torch.Tensor, n_buckets: int) -> torch.Tensor:
     _launch("route_rank", lib.launch_route_rank, _ptr(dst_agent), _ptr(out),
             A, n, n_buckets)
     return out
+
+
+def ring_slots(free_ring: torch.Tensor, head: torch.Tensor,
+               want: torch.Tensor) -> torch.Tensor:
+    """(A, cap) int32 free ring, (A,) int32 head, (A, n) bool insert mask ->
+    (A, n) int32 slots ``free_ring[a, (head[a] + rank) % cap]``, ``rank``
+    the exclusive count of wanted rows before each row."""
+    _check("ring_slots", free_ring)
+    _check("ring_slots", want, dtype=torch.bool)
+    A, cap = free_ring.shape
+    if want.shape[0] != A:
+        raise ValueError(f"ring_slots: {A} rings but {want.shape[0]} masks")
+    _check_cursor("ring_slots", head, A)
+    out = torch.empty(want.shape, dtype=torch.int32, device=want.device)
+    _launch("ring_slots", build.library().launch_ring_slots, _ptr(free_ring),
+            _ptr(head), _ptr(want), _ptr(out), A, cap, want.shape[1])
+    return out
+
+
+def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
+                 valid, table_id, res, free_tail, exec_cap: int, *,
+                 n_kinds: int, n_res: int
+                 ) -> tuple[FusedSelect, torch.Tensor]:
+    """The window front end over (A, cap) pools in one launch: int32
+    ``time_key, seq, time, kind, src, dst, ctx, table_id, res``; bool
+    ``safe, valid``; float32 ``payload`` (A, cap, P); int32 ``free_tail``
+    (A,). Returns the ``FusedSelect`` of ``max(min(exec_cap, cap), 1)``
+    lanes and the clean lanes' per-kind counts (A, n_kinds)."""
+    _check("fused_select", time_key, seq, time, kind, src, dst, ctx,
+           table_id, res)
+    A, cap = time_key.shape
+    _check("fused_select", safe, valid, dtype=torch.bool, shape=(A, cap))
+    if payload.ndim != 3:
+        raise ValueError(f"fused_select: payload must be (A, cap, P), got "
+                         f"{tuple(payload.shape)}")
+    n_pay = payload.shape[2]
+    _check("fused_select", payload, dtype=torch.float32, shape=(A, cap, n_pay))
+    _check_cursor("fused_select", free_tail, A)
+    if not 1 <= n_kinds <= MAX_KINDS:
+        raise ValueError(f"fused_select: n_kinds must be in [1, {MAX_KINDS}]"
+                         f", got {n_kinds}")
+    n_pad = _sort_pad("fused_select", cap)
+    m = max(min(int(exec_cap), cap), 1)
+    dev = time_key.device
+
+    def i32(*shape):
+        return torch.empty((A, m) + shape, dtype=torch.int32, device=dev)
+
+    def b8():
+        return torch.empty((A, m), dtype=torch.bool, device=dev)
+
+    out = FusedSelect(
+        exec_idx=i32(), exec_safe=b8(), time=i32(), seq=i32(), kind=i32(),
+        src=i32(), dst=i32(), ctx=i32(),
+        payload=torch.empty((A, m, n_pay), dtype=torch.float32, device=dev),
+        valid=b8(), clean=b8(), order=i32(), rel_pos=i32())
+    counts = torch.empty((A, n_kinds), dtype=torch.int32, device=dev)
+    ins = (time_key, seq, safe, time, kind, src, dst, ctx, valid, table_id,
+           res, payload, free_tail)
+    _launch("fused_select", build.library().launch_fused_select,
+            *map(_ptr, ins), *map(_ptr, out), _ptr(counts), A, cap, n_pad, m,
+            n_pay, n_kinds, int(n_res))
+    return out, counts

@@ -4,7 +4,9 @@ A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor takes
 the hand-written kernel (``event_select``), which raises on anything it does
 not accept. There is no fallback from the kernel to the plain version. The
 engine's ``select_fn``/``group_fn``/``trace_fn``/``route_fn`` hooks default
-to these four functions, so on the card the main path runs the kernels.
+to these functions, and ``spec.fused_select`` binds ``fused_fn`` and
+``slot_fn`` to ``fused_select`` and ``ring_slots``, so on the card the main
+path runs the kernels.
 """
 from __future__ import annotations
 
@@ -61,3 +63,28 @@ def route_rank(dst_agent, n_buckets: int):
     if _on_card(dst_agent):
         return _es.route_rank(_i32(dst_agent), n_buckets)
     return _ref.route_rank(dst_agent)
+
+
+def ring_slots(free_ring, head, want):
+    """(A, cap) free ring, (A,) head, (A, n) insert mask -> (A, n) slots."""
+    if _on_card(free_ring):
+        return _es.ring_slots(_i32(free_ring), _i32(head),
+                              want.bool().contiguous())
+    return _ref.ring_slots(free_ring, head, want)
+
+
+def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
+                 valid, table_id, res, free_tail, exec_cap: int, *,
+                 n_kinds: int, n_res: int):
+    """(A, cap) pool columns -> the window front end's ``FusedSelect`` and
+    the clean lanes' per-kind counts."""
+    kw = dict(n_kinds=n_kinds, n_res=n_res)
+    if _on_card(time_key):
+        return _es.fused_select(
+            *map(_i32, (time_key, seq)), safe.bool().contiguous(),
+            *map(_i32, (time, kind, src, dst, ctx)),
+            payload.float().contiguous(), valid.bool().contiguous(),
+            *map(_i32, (table_id, res, free_tail)), exec_cap, **kw)
+    return _ref.fused_select(time_key, seq, safe, time, kind, src, dst, ctx,
+                             payload, valid, table_id, res, free_tail,
+                             exec_cap, **kw)

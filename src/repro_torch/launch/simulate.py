@@ -17,7 +17,7 @@ from repro_torch.core import monitoring as mon
 
 
 def t0t1_scenario(bw: float, flows: int, agents: int, exec_cap=None,
-                  batched_dispatch: bool = True):
+                  batched_dispatch: bool = True, **spec_kw):
     """The T0/T1 replication study at WAN bandwidth ``bw`` (MB/tick)."""
     from repro_torch.core import ScenarioBuilder
     from repro_torch.core.components import DATA_WRITE, FLOW_START, JOB_SUBMIT
@@ -37,7 +37,7 @@ def t0t1_scenario(bw: float, flows: int, agents: int, exec_cap=None,
                     interval=15, count=flows)
     return b.build(n_agents=agents, lookahead=2, t_end=100_000,
                    pool_cap=1024, work_per_mb=2.0, exec_cap=exec_cap,
-                   batched_dispatch=batched_dispatch)
+                   batched_dispatch=batched_dispatch, **spec_kw)
 
 
 def run_t0t1(args) -> list[str]:
@@ -47,7 +47,8 @@ def run_t0t1(args) -> list[str]:
     for bw in args.bandwidths:
         world, own, init_ev, spec = t0t1_scenario(
             bw, args.flows, args.agents, args.exec_cap,
-            args.batched_dispatch)
+            args.batched_dispatch, merge_mode=args.merge_mode,
+            insert_mode=args.insert_mode, fused_select=args.fused_select)
         st = Engine(world, own, init_ev, spec,
                     device=args.device).run_local(max_windows=200_000)
         c = st.counters.sum(0).cpu()
@@ -77,6 +78,18 @@ def main(argv=None):
                     action=argparse.BooleanOptionalAction,
                     help="grouped batched handler dispatch (engine step 4); "
                          "--no-batched-dispatch runs the sequential fold")
+    p1.add_argument("--merge-mode", choices=("delta", "dense"),
+                    default="delta",
+                    help="batched merge: per-row delta scatters (default) "
+                         "or the whole-table reference merge")
+    p1.add_argument("--insert-mode", choices=("ring", "ref"), default="ring",
+                    help="event-pool lifecycle: free-list ring (default) or "
+                         "the O(pool_cap) reference rank scan")
+    p1.add_argument("--fused-select", action="store_true",
+                    help="run the window front end (select, gather, "
+                         "conflict mask, grouping, release ranks) as the "
+                         "one fused_select kernel, and the insert slots as "
+                         "ring_slots")
     p1.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "on the CPU)")

@@ -15,6 +15,7 @@ files with the most tests first, so few-test files run last, beside the
 suite's long property tests, on workers that would otherwise be idle.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -27,8 +28,11 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 
 from repro.core import Engine as JEngine  # noqa: E402
+from repro.core.engine import fused_select_xla  # noqa: E402
+from repro.core.registry import registry_of  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import Engine, merged_engine_trace  # noqa: E402
+from repro_torch.core import engine as teng  # noqa: E402
 
 from conftest import t0t1_builder  # noqa: E402
 
@@ -47,17 +51,33 @@ def port_scenario(world, own, init_ev, spec):
         {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)})
 
 
-def run_both(builder, build_kw, trace_cap):
+def run_both(builder, build_kw, trace_cap, port_twin=False):
     """Build once with the JAX builder; run JAX ``run_local`` and the port
     on the CPU. Returns (jax state as numpy, port state as numpy, the JAX
-    scenario, the port scenario)."""
+    scenario, the port scenario). Under ``fused_select`` the JAX engine
+    takes the stitched twin ``fused_select_xla`` as its ``fused_fn`` (the
+    JAX suite holds it byte-equal to the Pallas megakernel, which costs
+    minutes in interpret mode); the port takes its defaults, the plain
+    ``fused_select`` and ``ring_slots`` on the CPU, or with ``port_twin``
+    its own ``fused_select_xla``."""
     world, own, init_ev, spec = builder.build(**build_kw)
-    st = JEngine(world, own, init_ev, spec, trace_cap=trace_cap).run_local()
+    hooks, port_hooks = {}, {}
+    if spec.fused_select:
+        reg = registry_of(world)
+        kw = dict(n_kinds=reg.n_kinds, n_res=reg.max_rows(world),
+                  n_tables=reg.n_tables)
+        hooks["fused_fn"] = functools.partial(fused_select_xla, **kw)
+        if port_twin:
+            port_hooks["fused_fn"] = functools.partial(
+                teng.fused_select_xla, **kw)
+    st = JEngine(world, own, init_ev, spec, trace_cap=trace_cap,
+                 **hooks).run_local()
     jax.block_until_ready(st.counters)
     jstate = {"world": np_tree(st.world), "pool": np_tree(st.pool),
               **{k: np.asarray(getattr(st, k)) for k in STATE_LEAVES}}
     scen = port_scenario(world, own, init_ev, spec)
-    tst = Engine(*scen, trace_cap=trace_cap, device="cpu").run_local()
+    tst = Engine(*scen, trace_cap=trace_cap, device="cpu",
+                 **port_hooks).run_local()
     return jstate, convert.state_to_numpy(tst), (world, own, init_ev, spec), \
         scen
 
@@ -86,9 +106,10 @@ def assert_run_matches(jstate, tstate, oracle_trace):
     assert merged(tstate) == oracle_trace
 
 
-def t0t1_run_both(**opt):
+def t0t1_run_both(n_agents=1, port_twin=False, **opt):
     b, kw = t0t1_builder()
-    return run_both(b, dict(n_agents=1, **kw, **opt), trace_cap=512)
+    return run_both(b, dict(n_agents=n_agents, **kw, **opt), trace_cap=512,
+                    port_twin=port_twin)
 
 
 @pytest.mark.parametrize("exec_cap", [1, 7, 256])
