@@ -7,30 +7,39 @@ Needs one CUDA card (fails without one, and fails when run outside a
 checkout of the repository). Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a;
+2. build: compile each ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
+   one nvcc per source, all started together;
 3. kernels: each of the six window front-end kernels against its plain
    PyTorch version on the card, byte for byte, at the main paths' shapes
    (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384; group
    over 256 rows with 8 kinds; trace over 256; route over 4096 rows with 9
    buckets; fused_select over pool_cap 4096 -> 256, also 1000 and 16384;
-   ring_slots over a 4096 ring and 4096 rows) and on edge cases; then
-   timed with CUDA events against the plain version, the bound and, where
-   one exists, a single PyTorch call;
+   ring_slots over a 4096 ring and 4096 rows) and on edge cases; the
+   max-min water-fill bit for bit at tiered_grid's shapes (2048, 8 and 1
+   lanes of 32 flows over 4 links), one lane at every tabled flow-sum
+   order, the 64-pod workload's (256 and 1 lanes of 128 flows over 64
+   links) and edge cases; then each timed with CUDA events against the
+   plain version, the bound and, where one exists, a single PyTorch call;
 4. the stitched main path at real size: the ``tiered_grid`` scenario
    (WLCG's tier shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8
    agents, pool_cap 4096) through ``Engine.run_local`` on the card, with
-   every launch count set to 0 before and read after; no drops; byte-equal
-   to the same run on the CPU; its merged trace equal to the sequential
-   oracle;
+   every launch count set to 0 before and read after (the flow handlers
+   launch ``maxmin_rates``); no drops; byte-equal to the same run on the
+   CPU; its merged trace equal to the sequential oracle;
 4b. the fused front end (``fused_select=True``) on the same scenario at the
    same size: byte-equal to the stitched card run of phase 4, its merged
    trace equal to the oracle, no drops, ``fused_select`` and ``ring_slots``
    launched and ``select_events`` and ``group_by_kind`` not;
    then both paths profiled over 20 windows;
+4c. the workload bridge at full width: ``simulate_training`` of a 64-pod
+   cell (128 flow slots over 64 WAN links, one agent; the depth cut to one
+   training step) on the card, ``maxmin_rates`` launched, equal to the CPU
+   run; then ``simulate workload`` on a record written to a temporary
+   directory, ``--device cuda`` equal to ``--device cpu``;
 5. the normal entry point, ``repro_torch.launch.simulate t0t1`` on the card
-   with 1 and 4 agents, and with 4 agents under ``--fused-select`` and
-   under ``--insert-mode ref --merge-mode dense``, each equal to
-   ``--device cpu`` and to the stitched run;
+   with 1 and 4 agents, and with 4 agents under ``--fused-select``, under
+   ``--insert-mode ref --merge-mode dense`` and under ``--adaptive-exec``,
+   each equal to ``--device cpu`` and to the stitched run;
 6. a JSON line of the kernels, then the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -44,20 +53,28 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/event_select.cu"
-REPLACES = {
-    "select_events": "src/repro/kernels/event_select.py:51",
-    "group_by_kind": "src/repro/kernels/event_select.py:125",
-    "trace_rank": "src/repro/kernels/event_select.py:249",
-    "route_rank": "src/repro/kernels/event_select.py:287",
-    "ring_slots": "src/repro/kernels/event_select.py:185",
-    "fused_select": "src/repro/kernels/event_select.py:395",
+# Every kernel: its CUDA source and the TPU kernel it replaces (the JSON
+# line and PERF.md's table).
+_ES = "src/repro_torch/kernels/csrc/event_select.cu"
+_TPU_ES = "src/repro/kernels/event_select.py"
+KERNELS = {
+    "select_events": dict(source=_ES, replaces=f"{_TPU_ES}:51"),
+    "group_by_kind": dict(source=_ES, replaces=f"{_TPU_ES}:125"),
+    "trace_rank": dict(source=_ES, replaces=f"{_TPU_ES}:249"),
+    "route_rank": dict(source=_ES, replaces=f"{_TPU_ES}:287"),
+    "ring_slots": dict(source=_ES, replaces=f"{_TPU_ES}:185"),
+    "fused_select": dict(source=_ES, replaces=f"{_TPU_ES}:395"),
+    "maxmin_rates": dict(
+        source="src/repro_torch/kernels/csrc/bandwidth_share.cu",
+        replaces="src/repro/kernels/bandwidth_share.py:21"),
 }
 # H100 SXM: 3.35 TB/s of HBM; int32 ALU issue 64 ops/clk/SM x 132 SMs x
 # 1.98 GHz = 16.7 Tops/s (half the float32 lanes of the 67 TFLOP/s peak,
-# which counts an FMA as two operations).
+# which counts an FMA as two operations); float32 outside the tensor cores
+# 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
+FP32_OPS_PER_S = 67e12
 
 # The tiered Grid's source: WLCG's tier shape (wlcg.web.cern.ch, "Tier
 # centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
@@ -123,10 +140,28 @@ def cuda_ms(fn, iters: int = 200) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    """The least time in ms for ``n_bytes`` of HBM traffic and ``n_ops``
+    operations at ``ops_per_s``, and which of the two bounds it."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    to = n_ops / INT32_OPS_PER_S * 1e3
+    to = n_ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_modules():
+    """The wrapper modules, each with a ``LAUNCHES`` dict."""
+    from repro_torch.kernels import bandwidth_share, event_select
+    return event_select, bandwidth_share
+
+
+def reset_launches() -> None:
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def launches() -> dict:
+    return {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
 def max_err(got, want) -> int:
@@ -382,6 +417,160 @@ def check_ring_slots(es, ref, ri) -> int:
     return 0
 
 
+def maxmin_inputs(g, B, F, L, edge=None):
+    """Seeded (inc, bw, active) on the card for B lanes of F flows over L
+    links: one- to three-hop routes, bandwidths of the t0t1 sweep (0.0 a
+    starved link), 70% of flows active; or an edge case: "idle" (no active
+    flow), "no_bw" (every link 0), "neg_bw" (some links below 0), "repeat"
+    (routes that repeat a hop)."""
+    import torch
+    from repro_torch.core import network as net
+    links = torch.randint(-1, L, (B, F, 3), generator=g, dtype=torch.int32)
+    links[..., 0] = torch.randint(0, L, (B, F), generator=g,
+                                  dtype=torch.int32)
+    sweep = torch.tensor([8.0, 2.0, 0.5, 0.125, 0.2, 0.0, 1.3])
+    bw = sweep[torch.randint(0, len(sweep), (B, L), generator=g)]
+    active = torch.rand((B, F), generator=g) < 0.7
+    if edge == "idle":
+        active[:] = False
+    elif edge == "no_bw":
+        bw[:] = 0.0
+    elif edge == "neg_bw":
+        bw = torch.where(torch.rand((B, L), generator=g) < 0.3, -1.5, bw)
+    elif edge == "repeat":
+        links[..., 1] = links[..., 0]
+        links[..., 2] = links[..., 0]
+    dev = torch.device("cuda")
+    return (net.incidence(links.to(dev), L), bw.to(dev).contiguous(),
+            active.to(dev).contiguous())
+
+
+def maxmin_rounds(inc, bw, active) -> int:
+    """Rounds the kernel runs over all lanes: each lane stops after its
+    first round that freezes no flow (at most L)."""
+    import torch
+    from repro_torch.kernels import ref
+    running = torch.ones(active.shape[0], dtype=torch.bool,
+                         device=active.device)
+    total = 0
+    for _rate, newly in ref._fill_rounds(inc, bw, active):
+        total += int(running.sum())
+        running &= newly.any(1)
+    return total
+
+
+def phase_maxmin(g) -> dict:
+    """The max-min water-fill kernel against its plain version, bit for bit,
+    at the main paths' shapes and edge cases; then timed."""
+    import torch
+    from repro_torch.kernels import bandwidth_share as bs
+    from repro_torch.kernels import ref
+
+    def check(B, F, L, edge=None):
+        inc, bw, act = maxmin_inputs(g, B, F, L, edge)
+        order = ref.flow_order(F, L, B)
+        got = bs.maxmin_rates(inc, bw, act, order)
+        want = ref.maxmin_rates(inc, bw, act)
+        max_err(got.view(torch.int32), want.view(torch.int32))
+        print(f"[kernels] maxmin_rates B={B} F={F} L={L} head={order.head}"
+              f" chains={order.chains} tail_lanes={order.tail_lanes}"
+              f"{' ' + edge if edge else ''}: equal", flush=True)
+        return inc, bw, act
+
+    cases = [(2048, 32, 4), (8, 32, 4), (1, 32, 4), (256, 128, 64),
+             (1, 128, 64), (1, 60, 8), (1, 1, 1), (3, 1, 4)]
+    for F, ranges in sorted(ref._UNBATCHED_ORDER.items()):
+        cases += [(1, F, L) for lo, hi, _ in ranges for L in {lo, hi}]
+    for B, F, L in cases:
+        check(B, F, L)
+    for edge in ("idle", "no_bw", "neg_bw", "repeat"):
+        check(64, 32, 4, edge)
+        check(1, 128, 64, edge)
+
+    out = {}
+    # the JSON row: tiered_grid's batched evaluation (8 agents x 256 lanes)
+    for B, F, L in [(2048, 32, 4), (8, 32, 4), (256, 128, 64), (1, 128, 64)]:
+        inc, bw, act = maxmin_inputs(g, B, F, L)
+        order = ref.flow_order(F, L, B)
+        big = F * L >= 4096
+        ms = cuda_ms(lambda: bs.maxmin_rates(inc, bw, act, order))
+        plain_ms = cuda_ms(lambda: ref.maxmin_rates(inc, bw, act),
+                           iters=10 if big else 200)
+        # inc, bw, active read once, the rates written once; per round two
+        # (F x L) passes of a multiply and an add, over the rounds these
+        # inputs need
+        bms, by = bound(B * (F * L * 4 + L * 4 + F + F * 4),
+                        4 * F * L * maxmin_rounds(inc, bw, act),
+                        FP32_OPS_PER_S)
+        print(f"[kernels] maxmin_rates B={B} F={F} L={L}: kernel {ms:.6f} "
+              f"ms, plain {plain_ms:.6f} ms, library None ms, bound "
+              f"{bms:.9f} ms ({by})", flush=True)
+        if not out:
+            out = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bms, bound_by=by)
+    return out
+
+
+# --------------------------------------------------------------- phase 4c
+def phase_workload(card: str) -> dict:
+    """The workload bridge at full width: a 64-pod cell (128 flow slots
+    over 64 WAN links, one agent) on the card and on the CPU; then the
+    ``simulate workload`` entry point on both devices."""
+    import tempfile
+    import torch
+    from repro_torch.core import Engine
+    from repro_torch.core import monitoring as mon
+    from repro_torch.core import workload as wl
+    from repro_torch.launch import simulate
+
+    cell = wl.CellModel(n_pods=64, t_compute_s=0.05, dcn_bytes_per_pod=2e9,
+                        n_steps=1)
+    scen = wl.training_scenario(cell)
+    spec = scen[3]
+    print(f"[workload] 64 pods: {spec.n_lp} LPs, flow table "
+          f"{scen[0].flow_active.shape[1]} x link table "
+          f"{scen[0].link_bw.shape[1]}, exec_cap {spec.exec_cap}", flush=True)
+    eng = Engine(*scen, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = eng.run_local(max_windows=200_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = launches()
+    got = wl.summarize(cell, st)
+    c = st.counters.sum(0).tolist()
+    windows = got["windows"]
+    print(f"[workload] 64 pods cuda: {got}; wall {wall:.3f} s, "
+          f"{c[mon.C_BATCH_FALLBACK] / windows:.2f} fallback rows/window, "
+          f"launches {ran} ({card})", flush=True)
+    if ran["maxmin_rates"] == 0:
+        raise AssertionError("maxmin_rates never launched at 64 pods")
+    t0 = time.perf_counter()
+    st_cpu = Engine(*scen, device="cpu").run_local(max_windows=200_000)
+    want = wl.summarize(cell, st_cpu)
+    state_equal(st, st_cpu)
+    if got != want:
+        raise AssertionError(f"64 pods: cuda {got} != cpu {want}")
+    print(f"[workload] 64 pods: cuda state == cpu state, same result "
+          f"(cpu {time.perf_counter() - t0:.1f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = {"status": "ok", "arch": "dense", "shape": "train_4k",
+               "mesh": "2x4", "roofline": {
+                   "t_compute_s": 0.031, "t_memory_s": 0.012,
+                   "coll_by_kind": {"all-reduce": 1.5e9}}}
+        with open(os.path.join(tmp, "dense.json"), "w") as f:
+            json.dump(rec, f)
+        lines = {d: simulate.main(["workload", "--results", tmp, "--device",
+                                   d]) for d in ("cuda", "cpu")}
+    if lines["cuda"] != lines["cpu"] or len(lines["cuda"]) != 1:
+        raise AssertionError(f"simulate workload: {lines}")
+    print("[simulate] workload --device cuda == --device cpu", flush=True)
+    return dict(launches=ran, wall=wall, windows=windows,
+                fallback_rows=c[mon.C_BATCH_FALLBACK])
+
+
 # --------------------------------------------------------------- phase 4
 def state_equal(a, b) -> None:
     """Byte equality of two port states (floats by bit pattern)."""
@@ -399,7 +588,7 @@ def state_equal(a, b) -> None:
     walk(sa, sb, "state")
 
 
-def run_tiered(es, card: str, fused: bool):
+def run_tiered(card: str, fused: bool):
     """The tiered Grid on the card with the launch counts read around the
     run; raises on a drop. Returns (state, launches, numbers)."""
     import torch
@@ -415,35 +604,38 @@ def run_tiered(es, card: str, fused: bool):
           f"{spec.emit_cap}, route_cap {spec.route_cap}", flush=True)
     eng = Engine(world, own, init_ev, spec, trace_cap=65536, device="cuda")
     torch.cuda.synchronize()
-    es.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     st = eng.run_local()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(es.LAUNCHES)
+    ran = launches()
     c = st.counters.sum(0).cpu()
     windows, events = int(st.windows[0]), int(c[mon.C_EVENTS])
     print(f"[tiered_grid] {label} cuda: windows={windows} events={events} "
           f"wall={wall:.3f} s events/s={events / wall:.1f} "
-          f"windows/s={windows / wall:.2f} launches={launches} "
+          f"windows/s={windows / wall:.2f} launches={ran} "
           f"({card})", flush=True)
     for i in mon.DROP_COUNTERS + (mon.C_TRACE_DROP,):
         if int(c[i]) != 0:
             raise AssertionError(f"counter {mon.BUILTIN_COUNTERS[i][0]} = "
                                  f"{int(c[i])}")
-    return st, launches, dict(windows=windows, events=events, wall=wall)
+    if ran["maxmin_rates"] == 0:
+        raise AssertionError(f"maxmin_rates never launched on the {label} "
+                             f"path")
+    return st, ran, dict(windows=windows, events=events, wall=wall)
 
 
-def phase_fused_path(es, card: str, stitched) -> dict:
+def phase_fused_path(card: str, stitched) -> dict:
     """Phase 4b: the fused front end at full size, against the stitched
     card run and the oracle."""
     from repro_torch.core import merged_engine_trace
-    st, launches, nums = run_tiered(es, card, fused=True)
+    st, ran, nums = run_tiered(card, fused=True)
     for k in ("fused_select", "ring_slots", "trace_rank", "route_rank"):
-        if launches[k] == 0:
+        if ran[k] == 0:
             raise AssertionError(f"{k} never launched on the fused path")
     for k in ("select_events", "group_by_kind"):
-        if launches[k] != 0:
+        if ran[k] != 0:
             raise AssertionError(f"{k} launched on the fused path")
     state_equal(st, stitched["state"])
     print("[tiered_grid] fused cuda state == stitched cuda state (trace, "
@@ -452,17 +644,17 @@ def phase_fused_path(es, card: str, stitched) -> dict:
     if sorted(got) != stitched["oracle"]:
         raise AssertionError("fused merged trace != sequential oracle")
     print("[tiered_grid] fused merged trace == sequential oracle", flush=True)
-    return dict(launches=launches, **nums)
+    return dict(launches=ran, **nums)
 
 
-def phase_main_path(es, card: str) -> dict:
+def phase_main_path(card: str) -> dict:
     from repro_torch.core import components as comps
     from repro_torch.core import Engine, merged_engine_trace, run_sequential
 
     world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
-    st, launches, nums = run_tiered(es, card, fused=False)
+    st, ran, nums = run_tiered(card, fused=False)
     missing = [k for k in ("select_events", "group_by_kind", "trace_rank",
-                           "route_rank") if launches[k] == 0]
+                           "route_rank") if ran[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -491,7 +683,7 @@ def phase_main_path(es, card: str) -> dict:
     print(f"[tiered_grid] merged trace == sequential oracle ({len(want)} "
           f"events, {ties} rows share (time, seq) with another; "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    return dict(launches=launches, state=st, oracle=sorted(want), **nums)
+    return dict(launches=ran, state=st, oracle=sorted(want), **nums)
 
 
 def phase_profile(card: str, fused: bool, start: int = 150,
@@ -537,19 +729,20 @@ def phase_profile(card: str, fused: bool, start: int = 150,
                   f"ms/window, {e.count / n:.2f} calls/window", flush=True)
 
 
-def phase_entry_point(es) -> dict:
+def phase_entry_point() -> dict:
     from repro_torch.launch import simulate
-    launches, lines = {}, {}
+    ran, lines = {}, {}
     runs = {"1": ["--agents", "1"], "4": ["--agents", "4"],
             "4 fused": ["--agents", "4", "--fused-select"],
             "4 ref dense": ["--agents", "4", "--insert-mode", "ref",
-                            "--merge-mode", "dense"]}
+                            "--merge-mode", "dense"],
+            "4 adaptive": ["--agents", "4", "--adaptive-exec"]}
     for name, flags in runs.items():
-        es.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         got = simulate.main(["t0t1", *flags, "--device", "cuda"])
         t_card = time.perf_counter() - t0
-        launches[name] = dict(es.LAUNCHES)
+        ran[name] = launches()
         want = simulate.main(["t0t1", *flags, "--device", "cpu"])
         if got != want:
             raise AssertionError(f"simulate t0t1 {' '.join(flags)}: cuda "
@@ -560,14 +753,17 @@ def phase_entry_point(es) -> dict:
         lines[name] = got
         print(f"[simulate] t0t1 {' '.join(flags)}: cuda == cpu"
               f"{' == stitched' if name.startswith('4 ') else ''} "
-              f"(cuda {t_card:.1f} s, launches {launches[name]})",
-              flush=True)
-    if launches["4"]["route_rank"] == 0:
+              f"(cuda {t_card:.1f} s, launches {ran[name]})", flush=True)
+    if ran["4"]["route_rank"] == 0:
         raise AssertionError("route_rank never launched with 4 agents")
+    for name, counts in ran.items():
+        if counts["maxmin_rates"] == 0:
+            raise AssertionError(f"maxmin_rates never launched in t0t1 "
+                                 f"run {name!r}")
     for k in ("fused_select", "ring_slots"):
-        if launches["4 fused"][k] == 0:
+        if ran["4 fused"][k] == 0:
             raise AssertionError(f"{k} never launched under --fused-select")
-    return launches
+    return ran
 
 
 def main() -> int:
@@ -584,25 +780,30 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__}; CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
-    t0 = time.perf_counter()
-    build.library()
-    print(f"[build] {time.perf_counter() - t0:.2f} s -> {build.build_info['path']}",
-          flush=True)
+    build.build_all()
+    for name, info in build.build_info.items():
+        print(f"[build] {name}: {info['seconds']:.2f} s -> {info['path']}",
+              flush=True)
+        print("\n".join(f"[build] {line}" for line in info["log"].splitlines()
+                        if "registers" in line or "Compiling" in line),
+              flush=True)
     timings = phase_kernels(es, ref)
-    main_run = phase_main_path(es, card)
-    fused_run = phase_fused_path(es, card, main_run)
+    timings["maxmin_rates"] = phase_maxmin(torch.Generator().manual_seed(1))
+    main_run = phase_main_path(card)
+    fused_run = phase_fused_path(card, main_run)
+    phase_workload(card)
     phase_profile(card, fused=False)
     phase_profile(card, fused=True)
-    phase_entry_point(es)
+    phase_entry_point()
 
     # launches on each kernel's own path: the stitched run for the four
-    # stitched hooks, the fused run for fused_select and ring_slots
+    # stitched hooks and maxmin_rates, the fused run for fused_select and
+    # ring_slots
     kernels = []
     for name, t in timings.items():
         run = fused_run if name in ("fused_select", "ring_slots") else main_run
-        kernels.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES[name], launches=run["launches"][name], **t))
+        kernels.append(dict(name=name, route="cuda", **KERNELS[name],
+                            launches=run["launches"][name], **t))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,9 @@ The JAX package ``repro`` stays the reference; this package keeps its module
 and function names so every counterpart is easy to find. The JAX vmap agent
 axis is an explicit leading tensor dimension ``A``, collectives are
 reductions and transposes over it, and the window loop is stepped from the
-host. The four Pallas kernels of the stitched window front end
-(``select_events``, ``group_by_kind``, ``trace_rank``, ``route_rank``) are
-hand-written CUDA kernels for Hopper (``kernels/csrc/event_select.cu``); a
+host. The Pallas kernels it has ported are hand-written CUDA kernels for
+Hopper (``kernels/csrc/``: the six window front-end kernels in
+``event_select.cu``, the max-min water-fill in ``bandwidth_share.cu``); a
 CPU tensor takes their plain PyTorch versions (``kernels/ref.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

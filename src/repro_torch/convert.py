@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import events as ev
 from repro_torch.core.components import BUILTIN
 from repro_torch.core.engine import EngineState
+from repro_torch.core.policy import ExecPolicy
 from repro_torch.core.registry import ScenarioSpec
 
 _STATE_LEAVES = ("counters", "t_now", "done", "windows", "trace", "trace_n",
@@ -27,7 +28,10 @@ def _t(a, device):
 def scenario_from_numpy(world: dict, own: dict, init_events: dict,
                         spec: dict, device="cpu", registry=BUILTIN):
     """``(World, WorldOwnership, EventBatch, ScenarioSpec)`` of the port
-    from dicts of numpy arrays and a plain spec dict."""
+    from dicts of numpy arrays and a plain spec dict (an adaptive
+    ``exec_policy`` as the dict of its ``ExecPolicy`` fields)."""
+    if isinstance(spec.get("exec_policy"), dict):
+        spec = {**spec, "exec_policy": ExecPolicy(**spec["exec_policy"])}
     World = registry.world_struct()
     Own = registry.ownership_struct()
     return (World(**{k: _t(world[k], device) for k in World._fields}),

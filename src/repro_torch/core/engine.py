@@ -45,6 +45,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import events as ev
 from repro_torch.core import monitoring as mon
+from repro_torch.core import policy as pol
 from repro_torch.core import sync
 from repro_torch.core import tensor_util as tu
 from repro_torch.core.handlers import (apply_handler, apply_handler_batch,
@@ -135,7 +136,6 @@ class Engine:
         self.own = _to(own, self.device)
         self.init_events = _to(init_events, self.device)
         self.spec = spec
-        _ = spec.exec_cap   # raises for an unported adaptive policy
         self.trace_cap = trace_cap
         self.select_fn = select_fn or ops.select_events
         self.group_fn = group_fn or functools.partial(
@@ -190,11 +190,14 @@ class Engine:
             trace_n=z.clone(), trace_tail=z.clone())
 
     # ------------------------------------------------------------- superstep
-    def _superstep(self, st: EngineState) -> EngineState:
-        """One conservative window for every agent."""
+    def _superstep(self, st: EngineState,
+                   exec_cap: int | None = None) -> EngineState:
+        """One conservative window for every agent. ``exec_cap`` overrides
+        the spec's static width (the adaptive driver's rung)."""
         spec = self.spec
         world, pool, counters = st.world, st.pool, st.counters
-        xcap = max(min(spec.exec_cap, spec.pool_cap), 1)
+        width = spec.exec_cap if exec_cap is None else exec_cap
+        xcap = max(min(width, spec.pool_cap), 1)
 
         # 1-2. GVT + safe mask; 3. order (time, seq) + compact to the
         # earliest exec_cap slots
@@ -488,4 +491,37 @@ class Engine:
         while windows < max_windows and not bool(st.done[0]):
             st = self._superstep(st)
             windows += 1
+        return st
+
+    def run_adaptive(self, max_windows: int = 10_000,
+                     policy: "pol.ExecPolicy | int | None" = None,
+                     state: EngineState | None = None,
+                     rung: int | None = None) -> EngineState:
+        """Monitoring-driven execution width (``core/policy.py``): each
+        window runs at the current ladder rung's width, then the host reads
+        the window's counters once and picks the next rung. Spilling is
+        oracle-exact for any width sequence, so the trace and world equal
+        the static drivers' and the oracle's; only the window count changes.
+        The rung trajectory lands in ``self.adaptive_rungs``.
+
+        ``policy`` overrides ``spec.exec_policy`` (a bare int is a one-rung
+        ladder: the static run). ``state`` resumes from an earlier state and
+        ``rung`` from an earlier rung; at most ``max_windows`` windows run in
+        this call, as in the reference."""
+        p = pol.normalize(self.spec.exec_policy if policy is None else policy)
+        st = self.init_state() if state is None else state
+        rung = p.init_rung if rung is None else int(rung)
+        prev = st.counters.cpu().numpy()
+        rungs: list[int] = []
+        for _ in range(max_windows):
+            if bool(st.done.all()):
+                break
+            rungs.append(rung)
+            st = self._superstep(st, exec_cap=p.ladder[rung])
+            cur = st.counters.cpu().numpy()
+            rung = pol.choose_rung(p, rung,
+                                   pol.window_stats(prev, cur,
+                                                    self.spec.pool_cap))
+            prev = cur
+        self.adaptive_rungs = tuple(rungs)
         return st

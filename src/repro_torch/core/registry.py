@@ -538,7 +538,7 @@ class ScenarioSpec:
     route_cap: int
     n_lp: int
     work_per_mb: float = 1.0
-    exec_policy: Any = 256
+    exec_policy: Any = 256      # a static width or a policy.ExecPolicy
     batched_dispatch: bool = True
     merge_mode: str = "delta"
     insert_mode: str = "ring"
@@ -546,12 +546,10 @@ class ScenarioSpec:
 
     @property
     def exec_cap(self) -> int:
+        """The static per-window execution width of ``run_local``: the int
+        itself, or an adaptive policy's initial-rung width."""
         p = self.exec_policy
-        if not isinstance(p, int):
-            raise NotImplementedError(
-                "adaptive exec policies are not ported yet (ROADMAP.md, "
-                "port queue, item 3: policy.py and run_adaptive)")
-        return p
+        return p if isinstance(p, int) else p.ladder[p.init_rung]
 
 
 class ScenarioBuilderBase:
@@ -603,6 +601,10 @@ class ScenarioBuilderBase:
         self._rows[name].append(dict(fields))
         return self._new_lp(comp.lp_kind, len(self._rows[name]) - 1, ctx)
 
+    def add_idle_lp(self, ctx: int = 0) -> int:
+        """A bare LP with no component row (lp_kind 0): a NOOP event sink."""
+        return self._new_lp(0, 0, ctx)
+
     def add_event(self, *, time: int, kind, src: int, dst: int, payload=(),
                   ctx: int = 0):
         self._events.append(dict(time=time, seq=self._seq,
@@ -613,7 +615,7 @@ class ScenarioBuilderBase:
     def build(self, *, n_agents: int = 1, n_ctx: int = 1, lookahead: int,
               t_end: int, pool_cap: int = 1024, emit_cap: int | None = None,
               route_cap: int | None = None, exec_cap: int | None = None,
-              placement=None, work_per_mb: float = 1.0,
+              exec_policy=None, placement=None, work_per_mb: float = 1.0,
               batched_dispatch: bool = True, merge_mode: str = "delta",
               insert_mode: str = "ring", fused_select: bool = False):
         from repro_torch.core import events as ev   # late: events imports us
@@ -665,8 +667,13 @@ class ScenarioBuilderBase:
             comp.own_field: inverse_map(comp)
             for comp in reg.components.values()})
 
-        exec_policy = max(exec_cap if exec_cap is not None
-                          else min(pool_cap, 256), 1)
+        if exec_policy is not None and exec_cap is not None:
+            raise RegistryError(
+                "pass either exec_cap (static width) or exec_policy "
+                "(adaptive ladder), not both")
+        if exec_policy is None:
+            exec_policy = max(exec_cap if exec_cap is not None
+                              else min(pool_cap, 256), 1)
         spec = ScenarioSpec(
             n_agents=n_agents, n_ctx=n_ctx, lookahead=lookahead, t_end=t_end,
             pool_cap=pool_cap, emit_cap=emit_cap or pool_cap,

@@ -1,10 +1,11 @@
-"""Build the CUDA sources under ``csrc/`` into one shared library.
+"""Build the CUDA sources under ``csrc/`` into shared libraries.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes`` (a build of seconds; sources
-that include PyTorch's headers take minutes). The library lands in
-``build/repro_torch/<hash>/`` under the repository root (git-ignored), keyed
-by a hash of the sources and flags, and is built at first use.
+``nvcc`` compiles each ``csrc/<name>.cu`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with ``ctypes`` (a build of seconds;
+sources that include PyTorch's headers take minutes). The first call builds
+every source at once, one ``nvcc`` process each, started together. Each
+library lands in ``build/repro_torch/<name>-<hash>/`` under the repository
+root (git-ignored), keyed by a hash of its source and the flags.
 """
 from __future__ import annotations
 
@@ -23,17 +24,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "launch_select_events": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "launch_group_by_kind": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "launch_trace_rank": [_P, _P, _I, _I, _P],
-    "launch_route_rank": [_P, _P, _I, _I, _I, _P],
-    "launch_ring_slots": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "launch_fused_select": [_P] * 27 + [_I] * 7 + [_P],
-    "max_keys": [],
+    "event_select": {
+        "launch_select_events": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "launch_group_by_kind": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "launch_trace_rank": [_P, _P, _I, _I, _P],
+        "launch_route_rank": [_P, _P, _I, _I, _I, _P],
+        "launch_ring_slots": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "launch_fused_select": [_P] * 27 + [_I] * 7 + [_P],
+        "max_keys": [],
+    },
+    "bandwidth_share": {
+        "launch_maxmin_rates": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                ctypes.c_ulonglong, _I, _I, _P],
+        "maxmin_smem_bytes": [_I, _I],
+        "maxmin_max_smem": [],
+        "maxmin_max_order_blocks": [],
+    },
 }
+_RESTYPES = {"maxmin_smem_bytes": ctypes.c_longlong}
 
-_lib = None
-build_info: dict = {}
+_libs: dict[str, ctypes.CDLL] = {}
+# per source: the library's path, the build's seconds and nvcc's output
+# (``ptxas -v``: registers and shared memory per kernel)
+build_info: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -44,36 +57,53 @@ def _nvcc() -> str:
     return found
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    sources = sorted(CSRC.glob("*.cu"))
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    so = out_dir / "libevent_select.so"
+    h.update(src.read_bytes())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def build_all() -> None:
+    """Build and load every source that is not loaded yet, one ``nvcc``
+    process per source, all started together."""
+    todo = [n for n in _SIGNATURES if n not in _libs]
+    if not todo:
+        return
     t0 = time.perf_counter()
-    log = ""
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libevent_select.{os.getpid()}.tmp.so"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    procs = {}
+    for name in todo:
+        so = _target(name)
+        if so.exists():
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"lib{name}.{os.getpid()}.tmp.so")
+        procs[name] = (so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {}
+    for name, (so, tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed on {name}.cu "
+                               f"({proc.returncode}):\n{logs[name]}")
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    build_info.update(path=str(so), seconds=time.perf_counter() - t0,
-                      log=log)
-    _lib = lib
-    return lib
+    seconds = time.perf_counter() - t0
+    for name in todo:
+        so = _target(name)
+        lib = ctypes.CDLL(str(so))
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(fn_name, ctypes.c_int)
+        build_info[name] = dict(path=str(so), seconds=seconds,
+                                log=logs.get(name, ""))
+        _libs[name] = lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building every source
+    first if needed."""
+    if name not in _libs:
+        build_all()
+    return _libs[name]

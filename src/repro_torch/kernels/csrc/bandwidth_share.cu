@@ -1,0 +1,244 @@
+// Max-min fair bandwidth sharing (progressive filling) for Hopper (sm_90a).
+//
+//   maxmin_rates  replaces repro/kernels/bandwidth_share.py::_waterfill_kernel
+//                 (wrapper maxmin_rates_pallas)
+//
+// One CTA per lane: lane b holds F flows over L links, (F, L) 0/1 incidence,
+// (L,) capacities and (F,) active flags, and gets (F,) fair rates. The lane's
+// incidence lives in shared memory (row stride L or L + 1, odd, so the
+// per-flow pass over links is free of bank conflicts), and the L rounds of
+// progressive filling run inside the kernel: per link the count of unfrozen
+// flows and the sum of frozen rates (one thread per link), a block min for
+// the level, then per flow the freeze (one thread per flow). A round that
+// freezes nothing leaves the state as it was, so every later round would too:
+// the loop stops there, which gives the same bits as running all L rounds.
+//
+// What bounds it on this card: a call moves 4 * (F * L + L + F) + F bytes per
+// lane and does about 4 * F * L float operations per round, so at the main
+// path's shapes (F <= 128, L <= 64) it is bound by latency: the rounds' chain
+// of barriers and each link's serial sum over flows.
+//
+// Bits: the result equals the plain version (kernels/ref.py::maxmin_rates)
+// bit for bit. The per-link sum of frozen rates runs in the plain version's
+// order, which the host passes (kernels/ref.py::FlowOrder): eight lane
+// accumulators over a head of V flows in a given block order, added by
+// halves, then the other flows in 1, 2, 4 or 8 interleaved sums (V = 0:
+// left to right). Every add, multiply and
+// divide is an IEEE round-to-nearest intrinsic, so nothing is contracted into
+// a fused multiply-add; the constants are float literals, so no comparison is
+// promoted to double. The unfrozen counts are sums of 0/1 values, exact in
+// any order. The min propagates NaN as torch.amin does.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float EPS = 1e-6f;
+constexpr float BIG = 3.0e38f;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_ORDER_BLOCKS = 16;   // 4 bits per block index in a u64
+constexpr int MAX_SMEM = 232448;       // one block's shared memory on H100
+
+__host__ __device__ int row_stride(int L) { return L | 1; }
+
+__host__ __device__ size_t smem_bytes(int F, int L) {
+  // inc (F * ld), rate * frozen, rate (F each), fair, bw (L each) as float;
+  // active, frozen (F each) as bytes
+  return sizeof(float) * ((size_t)F * row_stride(L) + 2 * (size_t)F +
+                          2 * (size_t)L) + 2 * (size_t)F;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float term(const float* inc, int ld,
+                                      const float* rf, int f, int l) {
+  return __fmul_rn(inc[f * ld + l], rf[f]);
+}
+
+// The sum over flows of inc[f][l] * rf[f] in the plain version's order
+// (kernels/ref.py::FlowOrder): eight lane accumulators over the first V
+// flows, each lane's blocks in `chains` runs summed in turn, the lanes added
+// by halves; then the flows V.. in W interleaved sums (lane 0 starting from
+// the head's total), added by halves. V = 0: left to right.
+__device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
+                            int l, int V, unsigned long long order,
+                            int chains, int W) {
+  if (V == 0) {
+    float acc = term(inc, ld, rf, 0, l);
+    for (int f = 1; f < F; ++f) acc = __fadd_rn(acc, term(inc, ld, rf, f, l));
+    return acc;
+  }
+  const int run = V / 8 / chains;
+  float lane[8];
+  for (int c = 0; c < chains; ++c) {
+    float part[8];
+    const int b0 = (int)((order >> (4 * c * run)) & 15ull);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[j] = term(inc, ld, rf, 8 * b0 + j, l);
+    for (int k = c * run + 1; k < (c + 1) * run; ++k) {
+      const int bk = (int)((order >> (4 * k)) & 15ull);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        part[j] = __fadd_rn(part[j], term(inc, ld, rf, 8 * bk + j, l));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      lane[j] = c == 0 ? part[j] : __fadd_rn(lane[j], part[j]);
+  }
+  for (int h = 4; h >= 1; h >>= 1)
+    for (int j = 0; j < h; ++j) lane[j] = __fadd_rn(lane[j], lane[j + h]);
+  // the tail: lane[0] holds the head's total
+  for (int k = 1; k < W; ++k) lane[k] = term(inc, ld, rf, V + k, l);
+  if (V < F) lane[0] = __fadd_rn(lane[0], term(inc, ld, rf, V, l));
+  for (int f = V + W; f < F; ++f) {
+    const int k = (f - V) % W;
+    lane[k] = __fadd_rn(lane[k], term(inc, ld, rf, f, l));
+  }
+  for (int h = W / 2; h >= 1; h >>= 1)
+    for (int j = 0; j < h; ++j) lane[j] = __fadd_rn(lane[j], lane[j + h]);
+  return lane[0];
+}
+
+__global__ void __launch_bounds__(THREADS)
+maxmin_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
+              const uint8_t* __restrict__ active, float* __restrict__ out,
+              int F, int L, int V, unsigned long long order, int chains,
+              int W) {
+  extern __shared__ float smem[];
+  const int ld = row_stride(L);
+  float* s_inc = smem;
+  float* s_rf = s_inc + (size_t)F * ld;
+  float* s_rate = s_rf + F;
+  float* s_fair = s_rate + F;
+  float* s_bw = s_fair + L;
+  uint8_t* s_act = reinterpret_cast<uint8_t*>(s_bw + L);
+  uint8_t* s_frz = s_act + F;
+  __shared__ float s_min[WARPS];
+
+  const size_t b = blockIdx.x;
+  const float* g_inc = inc + b * F * L;
+  const uint8_t* g_act = active + b * F;
+  for (int f = threadIdx.x; f < F; f += THREADS) {
+    const bool a = g_act[f] != 0;
+    s_act[f] = a;
+    s_frz[f] = !a;
+    s_rate[f] = 0.f;
+    s_rf[f] = 0.f;
+  }
+  for (int l = threadIdx.x; l < L; l += THREADS) s_bw[l] = bw[b * L + l];
+  for (int i = threadIdx.x; i < F * L; i += THREADS) {
+    const int f = i / L;
+    const int l = i - f * L;
+    s_inc[f * ld + l] = __fmul_rn(g_inc[i], g_act[f] ? 1.f : 0.f);
+  }
+  __syncthreads();
+
+  for (int round = 0; round < L; ++round) {
+    // per link: unfrozen flows, frozen rates, fair share
+    float my_min = INFINITY;
+    for (int l = threadIdx.x; l < L; l += THREADS) {
+      float n_unf = 0.f;
+      for (int f = 0; f < F; ++f) {
+        const float unf = (s_act[f] && !s_frz[f]) ? 1.f : 0.f;
+        n_unf = __fadd_rn(n_unf, __fmul_rn(s_inc[f * ld + l], unf));
+      }
+      const float used =
+          frozen_sum(s_inc, ld, s_rf, F, l, V, order, chains, W);
+      float resid = __fsub_rn(s_bw[l], used);
+      resid = resid < 0.f ? 0.f : resid;
+      float fair = n_unf > 0.f
+          ? __fdiv_rn(resid, n_unf < 1.f ? 1.f : n_unf) : BIG;
+      if (s_bw[l] <= 0.f && n_unf > 0.f) fair = 0.f;
+      s_fair[l] = fair;
+      my_min = min_nan(my_min, fair);
+    }
+    // block min: the level
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      my_min = min_nan(my_min, __shfl_xor_sync(0xffffffffu, my_min, off));
+    if ((threadIdx.x & 31) == 0) s_min[threadIdx.x >> 5] = my_min;
+    __syncthreads();
+    float level = s_min[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) level = min_nan(level, s_min[w]);
+    const float thresh = __fadd_rn(level, EPS);
+
+    // per flow: freeze the unfrozen flows that cross a bottleneck link
+    int froze = 0;
+    for (int f = threadIdx.x; f < F; f += THREADS) {
+      if (s_act[f] && !s_frz[f]) {
+        bool hit = false;
+        for (int l = 0; l < L && !hit; ++l)
+          hit = s_inc[f * ld + l] > 0.f && s_fair[l] <= thresh;
+        if (hit) {
+          s_rate[f] = level;
+          s_frz[f] = 1;
+          froze = 1;
+        }
+      }
+      s_rf[f] = __fmul_rn(s_rate[f], s_frz[f] ? 1.f : 0.f);
+    }
+    if (!__syncthreads_or(froze)) break;
+  }
+
+  float* g_out = out + b * F;
+  for (int f = threadIdx.x; f < F; f += THREADS)
+    g_out[f] = s_act[f] ? s_rate[f] : 0.f;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one lane of (F, L) takes; the wrapper refuses shapes above
+// maxmin_max_smem().
+long long maxmin_smem_bytes(int n_flows, int n_links) {
+  return (long long)smem_bytes(n_flows, n_links);
+}
+
+int maxmin_max_smem() { return MAX_SMEM; }
+
+int maxmin_max_order_blocks() { return MAX_ORDER_BLOCKS; }
+
+// inc (B, F, L) f32, bw (B, L) f32, active (B, F) bool (one byte) -> out
+// (B, F) f32. (n_head, order, chains, tail_lanes): the flow-sum order of
+// kernels/ref.py::FlowOrder, n_head a multiple of 8 up to 8 *
+// MAX_ORDER_BLOCKS (0: left to right), order's 4-bit field k the block
+// summed k-th.
+int launch_maxmin_rates(const float* inc, const float* bw,
+                        const uint8_t* active, float* out, int n_lanes,
+                        int n_flows, int n_links, int n_head,
+                        unsigned long long order, int chains, int tail_lanes,
+                        void* stream) {
+  const size_t smem = smem_bytes(n_flows, n_links);
+  const int tail = n_flows - n_head;
+  if (n_lanes < 1 || n_flows < 1 || n_links < 1 || smem > MAX_SMEM ||
+      n_head < 0 || n_head % 8 != 0 || tail < 0 ||
+      n_head / 8 > MAX_ORDER_BLOCKS || chains < 1 ||
+      (n_head > 0 && (n_head / 8) % chains != 0) ||
+      (tail_lanes != 1 && tail_lanes != 2 && tail_lanes != 4 &&
+       tail_lanes != 8) ||
+      (tail_lanes > 1 &&
+       (tail < tail_lanes || tail % tail_lanes != 0 || n_head == 0)) ||
+      (n_head == 0 && chains != 1))
+    return (int)cudaErrorInvalidValue;
+  static size_t configured = 48 * 1024;
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        maxmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = MAX_SMEM;
+  }
+  maxmin_kernel<<<n_lanes, THREADS, smem, (cudaStream_t)stream>>>(
+      inc, bw, active, out, n_flows, n_links, n_head, order, chains,
+      tail_lanes);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -80,6 +80,10 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _lib():
+    return build.library("event_select")
+
+
 def select_events(time_key: torch.Tensor, seq: torch.Tensor,
                   exec_cap: int) -> torch.Tensor:
     """(A, cap) keys -> (A, min(exec_cap, cap)) slot indices: the prefix of
@@ -92,7 +96,7 @@ def select_events(time_key: torch.Tensor, seq: torch.Tensor,
         raise ValueError(f"select_events: exec_cap must be >= 1, got "
                          f"{exec_cap}")
     out = torch.empty((A, m), dtype=torch.int32, device=time_key.device)
-    _launch("select_events", build.library().launch_select_events,
+    _launch("select_events", _lib().launch_select_events,
             _ptr(time_key), _ptr(seq), _ptr(out), A, cap, n_pad, m)
     return out
 
@@ -115,7 +119,7 @@ def group_by_kind(kind: torch.Tensor, active: torch.Tensor, n_kinds: int):
     order = torch.empty_like(kind)
     rank = torch.empty_like(kind)
     counts = torch.empty((A, n_kinds), dtype=torch.int32, device=kind.device)
-    _launch("group_by_kind", build.library().launch_group_by_kind,
+    _launch("group_by_kind", _lib().launch_group_by_kind,
             _ptr(kind), _ptr(active), _ptr(order), _ptr(rank), _ptr(counts),
             A, m, n_kinds)
     return order, rank, counts
@@ -126,7 +130,7 @@ def trace_rank(mask: torch.Tensor) -> torch.Tensor:
     _check("trace_rank", mask)
     A, n = mask.shape
     out = torch.empty_like(mask)
-    _launch("trace_rank", build.library().launch_trace_rank,
+    _launch("trace_rank", _lib().launch_trace_rank,
             _ptr(mask), _ptr(out), A, n)
     return out
 
@@ -140,7 +144,7 @@ def route_rank(dst_agent: torch.Tensor, n_buckets: int) -> torch.Tensor:
     most the kernel's shared-memory key table. The plain version
     ``ref.route_rank`` takes any keys."""
     _check("route_rank", dst_agent)
-    lib = build.library()
+    lib = _lib()
     if not 1 <= n_buckets <= lib.max_keys():
         raise ValueError(f"route_rank: n_buckets must be in [1, "
                          f"{lib.max_keys()}], got {n_buckets}")
@@ -163,7 +167,7 @@ def ring_slots(free_ring: torch.Tensor, head: torch.Tensor,
         raise ValueError(f"ring_slots: {A} rings but {want.shape[0]} masks")
     _check_cursor("ring_slots", head, A)
     out = torch.empty(want.shape, dtype=torch.int32, device=want.device)
-    _launch("ring_slots", build.library().launch_ring_slots, _ptr(free_ring),
+    _launch("ring_slots", _lib().launch_ring_slots, _ptr(free_ring),
             _ptr(head), _ptr(want), _ptr(out), A, cap, want.shape[1])
     return out
 
@@ -208,7 +212,7 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
     counts = torch.empty((A, n_kinds), dtype=torch.int32, device=dev)
     ins = (time_key, seq, safe, time, kind, src, dst, ctx, valid, table_id,
            res, payload, free_tail)
-    _launch("fused_select", build.library().launch_fused_select,
+    _launch("fused_select", _lib().launch_fused_select,
             *map(_ptr, ins), *map(_ptr, out), _ptr(counts), A, cap, n_pad, m,
             n_pay, n_kinds, int(n_res))
     return out, counts

@@ -1,17 +1,19 @@
-"""Device dispatch for the window front-end kernels.
+"""Device dispatch for the Hopper kernels.
 
 A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor takes
-the hand-written kernel (``event_select``), which raises on anything it does
-not accept. There is no fallback from the kernel to the plain version. The
-engine's ``select_fn``/``group_fn``/``trace_fn``/``route_fn`` hooks default
-to these functions, and ``spec.fused_select`` binds ``fused_fn`` and
-``slot_fn`` to ``fused_select`` and ``ring_slots``, so on the card the main
-path runs the kernels.
+the hand-written kernel (``event_select``, ``bandwidth_share``), which raises
+on anything it does not accept. There is no fallback from the kernel to the
+plain version. The engine's ``select_fn``/``group_fn``/``trace_fn``/
+``route_fn`` hooks default to these functions, ``spec.fused_select`` binds
+``fused_fn`` and ``slot_fn`` to ``fused_select`` and ``ring_slots``, and the
+flow handlers' ``core.network.maxmin_rates`` calls ``maxmin_rates``, so on
+the card the main path runs the kernels.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bandwidth_share as _bs
 from repro_torch.kernels import event_select as _es
 from repro_torch.kernels import ref as _ref
 
@@ -88,3 +90,15 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
     return _ref.fused_select(time_key, seq, safe, time, kind, src, dst, ctx,
                              payload, valid, table_id, res, free_tail,
                              exec_cap, **kw)
+
+
+def maxmin_rates(inc, bw, active):
+    """(B, F, L) 0/1 incidence, (B, L) capacities, (B, F) active -> (B, F)
+    max-min fair rates, the flows summed in ``ref.flow_order``."""
+    if _on_card(inc):
+        B, F, L = inc.shape
+        return _bs.maxmin_rates(inc.float().contiguous(),
+                                bw.float().contiguous(),
+                                active.bool().contiguous(),
+                                _ref.flow_order(F, L, B))
+    return _ref.maxmin_rates(inc, bw, active)

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the window front-end kernels.
+"""Plain PyTorch versions of the Hopper kernels.
 
 Counterparts of ``repro.kernels.ref`` and of the XLA twins in
 ``repro.core.engine`` (``select_events_xla``, ``group_by_kind_xla``,
-``route_rank_xla``), plus the free-ring ``ring_slots`` and the fused window
-front end ``fused_select``. Every function works row-wise over a leading agent
-dimension: inputs are (A, n). These serve CPU tensors and are what
+``route_rank_xla``), plus the free-ring ``ring_slots``, the fused window
+front end ``fused_select`` and the max-min water-fill ``maxmin_rates`` (the
+reference's ``core.network.maxmin_rates``). The front-end functions work
+row-wise over a leading agent dimension, inputs (A, n); ``maxmin_rates``
+over a leading lane dimension. These serve CPU tensors and are what
 ``chip_smoke.py`` holds the CUDA kernels against on the card.
 """
 from __future__ import annotations
@@ -134,3 +136,155 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
         exec_idx=idx, exec_safe=es, time=g(time), seq=g(seq), kind=kind_w,
         src=g(src), dst=g(dst), ctx=g(ctx), payload=pay, valid=g(valid),
         clean=clean, order=order, rel_pos=rel), counts
+
+
+# ------------------------------------------------------------------ max-min
+_EPS = 1e-6
+_BIG = 3.0e38
+
+class FlowOrder(NamedTuple):
+    """An order of the sum over F flows. The first ``head`` flows go to eight
+    lane accumulators, lane l taking flows 8 * b + l for the 8-flow blocks b
+    of ``blocks``: split into ``chains`` equal runs, each run summed in turn
+    and the runs added one after another. The lanes are then added by
+    halves ((l, l + 4), then (l, l + 2), then (0, 1)). The flows from
+    ``head`` on are summed in ``tail_lanes`` interleaved sums, lane k taking
+    flows head + k, head + k + tail_lanes, ..., lane 0 starting from the
+    head's total, and those lanes are added by halves. The default is left
+    to right."""
+
+    head: int = 0
+    blocks: tuple = ()
+    chains: int = 1
+    tail_lanes: int = 1
+
+
+LEFT_TO_RIGHT = FlowOrder()
+
+# XLA:CPU's order for an unbatched ``inc.T @ x`` over F flows and L links,
+# found by probing its compiled matvec (tests/test_torch_network.py). It
+# depends on F and on L: ``_UNBATCHED_ORDER[F]`` lists (first L, last L,
+# order). F = 48-52, 56, 64-68, 72, 96 and 128 were probed at every L from
+# 1 to 64; F = 33-80 at L = 1-5, 8-10, 16, 32 and 64. Left to right in the
+# reference: F <= 42 at every L probed, F <= 49 from L = 2, and the gaps in
+# the table's ranges of L. Every other (F, L) probed sums in a tree of
+# another form, which the port does not reproduce and sums left to right
+# (ROADMAP.md, reference caveats).
+_ORDER_48 = FlowOrder(48, (0, 2, 4, 3, 1, 5))
+_ORDER_64 = FlowOrder(64, (0, 4, 5, 1, 6, 2, 7, 3))
+_ORDER_96 = FlowOrder(96, (0, 4, 8, 5, 1, 9, 6, 2, 10, 7, 3, 11))
+_ORDER_128 = FlowOrder(128, (0, 4, 8, 12, 5, 1, 9, 13, 6, 2, 10, 14, 7, 3,
+                             11, 15))
+_ORDER_128_CHAINS = FlowOrder(128, (0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14,
+                                    3, 7, 11, 15), chains=4)
+_UNBATCHED_ORDER = {
+    44: ((1, 1, FlowOrder(32, (0, 1, 2, 3), tail_lanes=4)),),
+    **dict.fromkeys((48, 49), ((1, 1, _ORDER_48),)),
+    **dict.fromkeys((50, 51), ((1, 1, _ORDER_48), (3, 64, _ORDER_48))),
+    52: ((1, 1, _ORDER_48._replace(tail_lanes=2)), (3, 8, _ORDER_48),
+         (9, 64, _ORDER_48._replace(tail_lanes=2))),
+    56: ((1, 1, _ORDER_48._replace(tail_lanes=4)), (3, 8, _ORDER_48),
+         (9, 64, _ORDER_48._replace(tail_lanes=4))),
+    60: ((1, 1, _ORDER_48._replace(tail_lanes=4)),
+         (9, 64, _ORDER_48._replace(tail_lanes=4))),
+    64: ((1, 1, _ORDER_64), (2, 8, _ORDER_48), (9, 64, _ORDER_64)),
+    **dict.fromkeys((65, 66, 67), ((1, 64, _ORDER_64),)),
+    68: ((1, 1, _ORDER_64._replace(tail_lanes=2)), (2, 8, _ORDER_64),
+         (9, 64, _ORDER_64._replace(tail_lanes=2))),
+    72: ((1, 1, _ORDER_64._replace(tail_lanes=4)), (2, 8, _ORDER_64),
+         (9, 64, _ORDER_64._replace(tail_lanes=4))),
+    76: ((1, 1, _ORDER_64._replace(tail_lanes=4)),
+         (9, 64, _ORDER_64._replace(tail_lanes=4))),
+    80: ((1, 1, _ORDER_64._replace(tail_lanes=8)),),
+    96: ((1, 1, _ORDER_96), (2, 8, _ORDER_64), (9, 64, _ORDER_96)),
+    128: ((1, 1, _ORDER_128), (2, 8, _ORDER_96), (9, 64, _ORDER_128_CHAINS)),
+}
+
+
+def flow_order(n_flows: int, n_links: int, n_lanes: int) -> FlowOrder:
+    """The order of the sum over flows for B lanes of (F, L): the
+    reference's unbatched order on one lane where it is reproduced, else
+    left to right. The kernel is given the same order."""
+    if n_lanes == 1:
+        for lo, hi, order in _UNBATCHED_ORDER.get(n_flows, ()):
+            if lo <= n_links <= hi:
+                return order
+    return LEFT_TO_RIGHT
+
+
+def _halves(lanes: list):
+    while len(lanes) > 1:
+        h = len(lanes) // 2
+        lanes = [lanes[k] + lanes[k + h] for k in range(h)]
+    return lanes[0]
+
+
+def _sum_flows(contrib: torch.Tensor) -> torch.Tensor:
+    """(F, B, L) -> (B, L): the sum over flows in :func:`flow_order`."""
+    F, B, L = contrib.shape[:3]
+    V, blocks, chains, W = flow_order(F, L, B)
+    if not V:
+        acc = contrib[0]
+        for f in range(1, F):
+            acc = acc + contrib[f]
+        return acc
+    rows = contrib[:V].reshape((V // 8, 8) + contrib.shape[1:])
+    run = len(blocks) // chains
+    lanes = None
+    for c in range(chains):
+        part = rows[blocks[c * run]]
+        for b in blocks[c * run + 1:(c + 1) * run]:
+            part = part + rows[b]
+        lanes = part if lanes is None else lanes + part
+    while lanes.shape[0] > 1:
+        h = lanes.shape[0] // 2
+        lanes = lanes[:h] + lanes[h:]
+    tail = [lanes[0]] + [contrib[f] for f in range(V + 1, min(V + W, F))]
+    if V < F:
+        tail[0] = tail[0] + contrib[V]
+    for f in range(V + W, F):
+        tail[(f - V) % W] = tail[(f - V) % W] + contrib[f]
+    return _halves(tail)
+
+
+def _fill_rounds(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor):
+    """The L rounds of progressive filling: yields ``(rate, newly)`` after
+    each round, ``newly`` the flows it froze."""
+    B, F, L = inc.shape
+    inc = inc * active[..., None].to(inc.dtype)
+    big = torch.full((), _BIG, dtype=torch.float32, device=inc.device)
+    rate = torch.zeros((B, F), dtype=torch.float32, device=inc.device)
+    frozen = ~active
+    for _ in range(L):
+        unfrozen = active & ~frozen
+        # integer-valued counts: exact in any summation order
+        n_unf = torch.sum(inc * unfrozen[..., None].to(torch.float32), dim=1)
+        contrib = (inc * (rate * frozen.to(torch.float32))[..., None]
+                   ).transpose(0, 1).contiguous()          # (F, B, L)
+        used = _sum_flows(contrib)
+        resid = torch.clamp_min(bw - used, 0.0)
+        fair = torch.where(n_unf > 0, resid / torch.clamp_min(n_unf, 1.0), big)
+        fair = torch.where((bw <= 0) & (n_unf > 0), 0.0, fair)
+        level = torch.amin(fair, dim=1, keepdim=True)
+        bottleneck = fair <= level + _EPS
+        hits = torch.any((inc > 0) & bottleneck[:, None, :], dim=2)
+        newly = unfrozen & hits
+        rate = torch.where(newly, level, rate)
+        frozen = frozen | newly
+        yield rate, newly
+
+
+def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor
+                 ) -> torch.Tensor:
+    """Progressive-filling max-min fair rates over lanes.
+
+    inc: (B, F, L) 0/1, bw: (B, L), active: (B, F) bool -> (B, F) rates.
+    L rounds, each freezing every flow that crosses a bottleneck link. The
+    per-link sum of frozen rates (``inc.T @ (rate * frozen)`` in the
+    reference) is a sum of explicit additions in XLA:CPU's order
+    (:func:`flow_order`), never a BLAS call or ``torch.sum``, whose orders
+    differ between devices."""
+    rate = torch.zeros(active.shape, dtype=torch.float32, device=inc.device)
+    for rate, _newly in _fill_rounds(inc, bw, active):
+        pass
+    return torch.where(active, rate, 0.0)

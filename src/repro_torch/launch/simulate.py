@@ -1,22 +1,48 @@
-"""Simulation launcher of the port (the ``t0t1`` mode of
+"""Simulation launcher of the port (the ``t0t1`` and ``workload`` modes of
 ``repro.launch.simulate``).
 
-  t0t1   reproduce the paper's §3.1 CERN study: a T0 -> T1 WAN bandwidth
-         sweep, printing events, stale completions, interrupts, MB moved and
-         windows per bandwidth.
+  t0t1      reproduce the paper's §3.1 CERN study: a T0 -> T1 WAN bandwidth
+            sweep, printing events, stale completions, interrupts, MB moved
+            and windows per bandwidth; ``--adaptive-exec`` runs the
+            monitoring-driven width ladder (``Engine.run_adaptive``)
+  workload  simulate a training cell from each dry-run roofline JSON record
+            in ``--results`` (``core/workload.py``)
 
 Runs on the CUDA card unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.simulate t0t1 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.simulate workload \
+        --results results/dryrun --device cuda
 """
 from __future__ import annotations
 
 import argparse
+import glob
+import json
+import os
 
 from repro_torch.core import monitoring as mon
 
 
-def t0t1_scenario(bw: float, flows: int, agents: int, exec_cap=None,
+T0T1_POOL_CAP = 1024
+
+
+def exec_policy_args(args, pool_cap: int) -> dict:
+    """``exec_cap`` or ``exec_policy`` build kwargs from the CLI knobs;
+    ``pool_cap`` is the builder's, which the default ladder tops out at."""
+    if not args.adaptive_exec:
+        return dict(exec_cap=args.exec_cap)
+    if args.exec_cap is not None:
+        raise SystemExit(
+            "--exec-cap and --adaptive-exec conflict: pass either a static "
+            "width or a ladder (--exec-ladder), not both")
+    from repro_torch.core.policy import ExecPolicy, default_ladder
+    ladder = (tuple(args.exec_ladder) if args.exec_ladder
+              else default_ladder(pool_cap))
+    return dict(exec_policy=ExecPolicy(ladder=ladder))
+
+
+def t0t1_scenario(bw: float, flows: int, agents: int,
                   batched_dispatch: bool = True, **spec_kw):
     """The T0/T1 replication study at WAN bandwidth ``bw`` (MB/tick)."""
     from repro_torch.core import ScenarioBuilder
@@ -36,7 +62,7 @@ def t0t1_scenario(bw: float, flows: int, agents: int, exec_cap=None,
                         notify2_kind=DATA_WRITE.id),
                     interval=15, count=flows)
     return b.build(n_agents=agents, lookahead=2, t_end=100_000,
-                   pool_cap=1024, work_per_mb=2.0, exec_cap=exec_cap,
+                   pool_cap=T0T1_POOL_CAP, work_per_mb=2.0,
                    batched_dispatch=batched_dispatch, **spec_kw)
 
 
@@ -46,11 +72,15 @@ def run_t0t1(args) -> list[str]:
     lines = []
     for bw in args.bandwidths:
         world, own, init_ev, spec = t0t1_scenario(
-            bw, args.flows, args.agents, args.exec_cap,
-            args.batched_dispatch, merge_mode=args.merge_mode,
-            insert_mode=args.insert_mode, fused_select=args.fused_select)
-        st = Engine(world, own, init_ev, spec,
-                    device=args.device).run_local(max_windows=200_000)
+            bw, args.flows, args.agents, args.batched_dispatch,
+            merge_mode=args.merge_mode, insert_mode=args.insert_mode,
+            fused_select=args.fused_select,
+            **exec_policy_args(args, T0T1_POOL_CAP))
+        eng = Engine(world, own, init_ev, spec, device=args.device)
+        if args.adaptive_exec:
+            st = eng.run_adaptive(max_windows=200_000)
+        else:
+            st = eng.run_local(max_windows=200_000)
         c = st.counters.sum(0).cpu()
         line = (f"[t0t1] bw={bw:7.3f} MB/tick  "
                 f"events={int(c[mon.C_EVENTS]):6d} "
@@ -61,6 +91,35 @@ def run_t0t1(args) -> list[str]:
         print(line, flush=True)
         lines.append(line)
     return lines
+
+
+def run_workload(args) -> list[str]:
+    from repro_torch.core.workload import cell_from_roofline, simulate_training
+
+    paths = sorted(glob.glob(os.path.join(args.results, "*.json")))
+    if args.cell:
+        paths = [p for p in paths if args.cell in p]
+    lines = []
+    for p in paths[: args.limit]:
+        with open(p) as f:
+            rec = json.load(f)
+        if rec.get("status") != "ok":
+            continue
+        cell = cell_from_roofline(rec["roofline"], n_pods=2, n_steps=4)
+        out = simulate_training(cell, device=args.device)
+        line = (f"[workload] {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
+                f"sim={out['simulated_step_s']:.4f}s "
+                f"analytic={out['analytic_step_s']:.4f}s "
+                f"events={out['events']}")
+        print(line, flush=True)
+        lines.append(line)
+    return lines
+
+
+def _device_arg(p) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs "
+                        "on the CPU)")
 
 
 def main(argv=None):
@@ -90,11 +149,21 @@ def main(argv=None):
                          "conflict mask, grouping, release ranks) as the "
                          "one fused_select kernel, and the insert slots as "
                          "ring_slots")
-    p1.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card; 'cpu' runs "
-                         "on the CPU)")
+    p1.add_argument("--adaptive-exec", action="store_true",
+                    help="monitoring-driven exec width (core/policy.py "
+                         "ladder; Engine.run_adaptive) instead of a static "
+                         "exec_cap")
+    p1.add_argument("--exec-ladder", type=int, nargs="+", default=None,
+                    help="explicit width ladder for --adaptive-exec "
+                         "(default: policy.default_ladder(pool_cap))")
+    _device_arg(p1)
+    p2 = sub.add_parser("workload")
+    p2.add_argument("--results", default="results/dryrun")
+    p2.add_argument("--cell", default="")
+    p2.add_argument("--limit", type=int, default=5)
+    _device_arg(p2)
     args = ap.parse_args(argv)
-    return run_t0t1(args)
+    return dict(t0t1=run_t0t1, workload=run_workload)[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -395,7 +395,7 @@ def _one_lane_ulps(F, L, lanes, seed):
                                72, 96, 128])
 def test_maxmin_rates_one_lane_bit_equal(F):
     """On one lane the reference's unbatched matvec sums the flows in an
-    order that depends on F (core/network.py, ``_UNBATCHED_ORDER``); the
+    order that depends on F (kernels/ref.py, ``_UNBATCHED_ORDER``); the
     port reproduces it for these F, bit for bit."""
     assert _one_lane_ulps(F, 8, 24, F) == (0, 0)
 

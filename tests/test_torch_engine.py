@@ -45,10 +45,13 @@ def np_tree(nt):
 
 
 def port_scenario(world, own, init_ev, spec):
-    """The JAX-built scenario as the port's tensors (through numpy)."""
+    """The JAX-built scenario as the port's tensors (through numpy; an
+    adaptive exec policy as the dict of its fields)."""
+    fields = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    if not isinstance(fields["exec_policy"], int):
+        fields["exec_policy"] = dataclasses.asdict(fields["exec_policy"])
     return convert.scenario_from_numpy(
-        np_tree(world), np_tree(own), np_tree(init_ev),
-        {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)})
+        np_tree(world), np_tree(own), np_tree(init_ev), fields)
 
 
 def run_both(builder, build_kw, trace_cap, port_twin=False):

@@ -5,7 +5,7 @@ batched over several lanes, but on one lane (the oracle's single-event
 step; the engine with one agent, whose vmap of size 1 XLA removes) it
 compiles a vectorised matvec whose summation order depends on the flow
 count. The port reproduces the orders listed in
-``repro_torch.core.network._UNBATCHED_ORDER``. Here: the probe that reads
+``repro_torch.kernels.ref._UNBATCHED_ORDER``. Here: the probe that reads
 that order off the reference, and a 64-flow region (the builder's default
 ``max_flow``) through both oracles and both one-agent engines (see
 test_torch_engine.py for why these files hold few tests).
@@ -25,8 +25,8 @@ from repro.core import ScenarioBuilder  # noqa: E402
 from repro.core import run_sequential as j_run_sequential  # noqa: E402
 from repro.core.components import (DATA_WRITE, FLOW_START,  # noqa: E402
                                    JOB_SUBMIT)
-from repro_torch.core import network as tnet  # noqa: E402
 from repro_torch.core import run_sequential  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 from test_torch_engine import (assert_states_equal, merged,  # noqa: E402
                                np_tree, port_scenario, run_both)
@@ -50,9 +50,10 @@ def reference_sum_tree(F, L=4):
     return meet
 
 
-def port_sum_tree(F):
-    """The same counts for the port's one-lane order (``_sum_flows``), run
-    on symbolic leaves: a partial sum is the set of flows under it."""
+def port_sum_tree(F, L=4):
+    """The same counts for the port's one-lane order (``_sum_flows``) over L
+    links, run on symbolic leaves: a partial sum is the set of flows under
+    it."""
     meet = np.zeros((F, F), np.int64)
 
     class Sum:
@@ -71,7 +72,7 @@ def port_sum_tree(F):
 
         def __init__(self, xs):
             self.xs = xs
-            self.shape = (len(xs), 1, 1)
+            self.shape = (len(xs), 1, L)
 
         def __getitem__(self, k):
             return Rows(self.xs[k]) if isinstance(k, slice) else self.xs[k]
@@ -84,12 +85,19 @@ def port_sum_tree(F):
         def __add__(self, other):
             return Rows([a + b for a, b in zip(self.xs, other.xs)])
 
-    tnet._sum_flows(Rows([Sum({f}) for f in range(F)]))
+    tref._sum_flows(Rows([Sum({f}) for f in range(F)]))
     return meet
 
 
 def test_reference_one_lane_order_at_64_flows_is_the_ports():
     assert (reference_sum_tree(64) == port_sum_tree(64)).all()
+
+
+@pytest.mark.parametrize("F,L", [(56, 9), (72, 64), (128, 64)])
+def test_reference_one_lane_tree_is_the_ports(F, L):
+    """The trees with interleaved tail sums and with per-lane runs, at the
+    link counts from which the reference takes them."""
+    assert (reference_sum_tree(F, L) == port_sum_tree(F, L)).all()
 
 
 def grid_64_flows():
@@ -130,7 +138,7 @@ def test_port_oracle_equals_jax_oracle_at_64_flows(monkeypatch):
                         np_tree(jw))
     assert_states_equal(tc.numpy(), np.asarray(jc))
     # the left-to-right sum of the batched context differs here
-    monkeypatch.setattr(tnet, "_UNBATCHED_ORDER", {})
+    monkeypatch.setattr(tref, "_UNBATCHED_ORDER", {})
     tw2, _, _ = run_sequential(*port_scenario(*scen))
     assert not np.array_equal(tw2.flow_rate.numpy().view(np.int32),
                               np.asarray(jw.flow_rate).view(np.int32))
