@@ -40,6 +40,32 @@ checkout of the repository). Phases, each of which raises on failure:
    with 1 and 4 agents, and with 4 agents under ``--fused-select``, under
    ``--insert-mode ref --merge-mode dense`` and under ``--adaptive-exec``,
    each equal to ``--device cpu`` and to the stitched run;
+3z. the model zoo's kernels against their plain versions on the card, in
+   float32 and bfloat16, at the serve path's shapes: flash attention at
+   hymba-1.5b's prefill (4 x 25 query heads, 4 x 5 KV heads of 64, S 2048,
+   window 1024; also window 0), at S 1000, non-causal and at the smoke
+   configs' head dim 16; ``rwkv6_scan`` at rwkv6-7b's (4 x 64 heads of 64,
+   S 2048, chunk 64) and ``ssd_scan`` at hymba's SSD (4 x 25 heads, state
+   16, head 64), both also at S 1000 (the divisor rule's chunk 50); then
+   each timed against the plain version, the bound and, for attention,
+   ``scaled_dot_product_attention`` with the same mask;
+4z. the model path at full width and 2 layers: hymba-1.5b (B 2, S 2048) and
+   rwkv6-7b (B 2, S 1024) in float32 with TF32 off, one set of random
+   weights on the card (the kernels) and on the CPU (the plain versions):
+   prefill logits, the decode state and four teacher-forced decode steps'
+   logits agree; each kernel of the model launched once per layer;
+4s. the serve path at full width and depth: ``ServeEngine`` on the card in
+   bfloat16 with random weights, hymba-1.5b then rwkv6-7b, 4 requests of
+   2048 tokens in 4 slots, 16 new tokens each: 32 launches of
+   ``flash_attention`` and ``ssd_scan`` (hymba) or ``rwkv6_scan`` (rwkv6)
+   at the admit, every logit finite, every token in the vocabulary, every
+   request done; prefill seconds, decode ms per tick, tokens per second
+   and peak memory; then a second admit and three ticks under
+   torch.profiler (device busy share, the costliest device ops);
+5z. the serve entry point, ``repro_torch.launch.serve --arch hymba-1.5b``
+   (smoke config) on the card and on the CPU with the same request and
+   token counts, then ``--full --prompt-len 2048`` on the card for both
+   arches;
 6. a JSON line of the kernels, then the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -67,6 +93,13 @@ KERNELS = {
     "maxmin_rates": dict(
         source="src/repro_torch/kernels/csrc/bandwidth_share.cu",
         replaces="src/repro/kernels/bandwidth_share.py:21"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:27"),
+    "rwkv6_scan": dict(source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                       replaces="src/repro/kernels/rwkv6_scan.py:22"),
+    "ssd_scan": dict(source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                     replaces="src/repro/kernels/rwkv6_scan.py:69"),
 }
 # H100 SXM: 3.35 TB/s of HBM; int32 ALU issue 64 ops/clk/SM x 132 SMs x
 # 1.98 GHz = 16.7 Tops/s (half the float32 lanes of the 67 TFLOP/s peak,
@@ -75,6 +108,8 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 FP32_OPS_PER_S = 67e12
+# bf16 on the tensor cores, dense (the model zoo's attention in bfloat16)
+BF16_OPS_PER_S = 989e12
 
 # The tiered Grid's source: WLCG's tier shape (wlcg.web.cern.ch, "Tier
 # centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
@@ -151,8 +186,9 @@ def bound(n_bytes: float, n_ops: float,
 
 def kernel_modules():
     """The wrapper modules, each with a ``LAUNCHES`` dict."""
-    from repro_torch.kernels import bandwidth_share, event_select
-    return event_select, bandwidth_share
+    from repro_torch.kernels import (bandwidth_share, event_select,
+                                     flash_attention, rwkv6_scan)
+    return event_select, bandwidth_share, flash_attention, rwkv6_scan
 
 
 def reset_launches() -> None:
@@ -766,6 +802,395 @@ def phase_entry_point() -> dict:
     return ran
 
 
+# --------------------------------------------------------------- phase 3z
+ZOO_TOL = {"float32": dict(atol=2e-6, rtol=2e-6),
+           "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+GLA_TOL = dict(atol=5e-5, rtol=5e-4)
+
+
+def zoo_close(name: str, got, want, tol: dict) -> float:
+    """Max abs error of ``got`` against ``want`` (as float32); raises
+    unless every value is finite and within ``tol``."""
+    import torch
+    g, w = got.float(), want.float()
+    if g.shape != w.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not bool(torch.isfinite(g).all()) or not bool(torch.isfinite(w).all()):
+        raise AssertionError(f"{name}: a value is not finite")
+    if not torch.allclose(g, w, **tol):
+        raise AssertionError(f"{name}: max abs error "
+                             f"{float((g - w).abs().max())} outside {tol}")
+    return float((g - w).abs().max())
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a head attends: what the function needs."""
+    if not causal:
+        return sq * skv
+    return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(sq))
+
+
+def gla_flops(s: int, c: int, dk: int, dv: int, mode: str) -> int:
+    """Float operations of one head's chunked scan (products and sums of
+    the intra-chunk matrix, its product with V, the state read and the
+    state update), counting only the triangle the mode needs."""
+    tri = c * (c - 1) // 2 if mode == "k" else c * (c + 1) // 2
+    per_chunk = 2 * (tri * dk + c * dk * dv + c * (c + 1) // 2 * dv
+                     + c * dk * dv)
+    return per_chunk * (s // c)
+
+
+def phase_zoo_kernels() -> dict:
+    """Flash attention and both GLA modes against their plain versions at
+    the serve path's shapes, then timed (the bfloat16 main shapes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as gla
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+
+    def rn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+    err = {"flash_attention": 0.0, "rwkv6_scan": 0.0, "ssd_scan": 0.0}
+    # (B, H, KV, S, D, causal, window): hymba's prefill at the serve batch,
+    # window 0, a length that is no multiple of the 64-row tile, a
+    # non-causal call (KV length 2 S), the smoke configs' head dim 16
+    fa_cases = [(4, 25, 5, 2048, 64, True, 1024), (4, 25, 5, 2048, 64, True, 0),
+                (2, 25, 5, 1000, 64, True, 1024), (2, 6, 2, 100, 128, False, 0),
+                (2, 4, 2, 32, 16, True, 32), (1, 9, 3, 130, 32, True, 64)]
+    main_fa = None
+    for B, H, KV, S, D, causal, win in fa_cases:
+        skv = S if causal else 2 * S
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            q, k, v = (rn(B * h, n, D, dtype=tdt) for h, n in
+                       ((H, S), (KV, skv), (KV, skv)))
+            e = zoo_close(f"flash_attention {B}x{H}/{KV} S={S} D={D} "
+                          f"causal={causal} window={win} {dt}",
+                          fa.flash_attention(q, k, v, causal=causal,
+                                             window=win),
+                          ref.attention(q, k, v, causal=causal, window=win),
+                          ZOO_TOL[dt])
+            print(f"[zoo kernels] flash_attention B={B} H={H} KV={KV} S={S} "
+                  f"D={D} causal={causal} window={win} {dt}: max abs err "
+                  f"{e:.3e} (tolerance {ZOO_TOL[dt]})", flush=True)
+            if main_fa is None and dt == "bfloat16":
+                main_fa = (q, k, v, B, H, KV, S, D, win)
+                err["flash_attention"] = e
+    # (BH, S, dk, dv, chunk, mode): rwkv6-7b's time mix and hymba's SSD at
+    # the serve batch; S 1000 takes the divisor rule's chunk 50; the smoke
+    # configs' widths
+    gla_cases = [(4 * 64, 2048, 64, 64, 64, "k"), (4 * 25, 2048, 16, 64, 64, "v"),
+                 (2 * 64, 1000, 64, 64, 50, "k"), (2 * 25, 1000, 16, 64, 50, "v"),
+                 (8, 48, 16, 16, 16, "k"), (8, 32, 8, 16, 16, "v")]
+    main_gla = {}
+    for bh, S, dk, dv, chunk, mode in gla_cases:
+        name = "rwkv6_scan" if mode == "k" else "ssd_scan"
+        for dt in ("float32", "bfloat16"):
+            tdt = getattr(torch, dt)
+            q, k = (rn(bh, S, dk, scale=0.5, dtype=tdt) for _ in range(2))
+            v = rn(bh, S, dv, scale=0.5, dtype=tdt)
+            w = torch.exp(-torch.exp(rn(bh, S, dk if mode == "k" else dv)
+                                     * 0.5 - 1.0))
+            u = rn(bh, dk, scale=0.3) if mode == "k" else None
+            out, st = gla.gla_scan(q, k, v, w, u, mode=mode, chunk=chunk)
+            want, wst = ref.gla_scan(q, k, v, w, u, mode=mode, chunk=chunk)
+            label = f"{name} BH={bh} S={S} dk={dk} dv={dv} chunk={chunk} {dt}"
+            out_tol = GLA_TOL if dt == "float32" else ZOO_TOL[dt]
+            e = zoo_close(label, out, want, out_tol)
+            es = zoo_close(label + " state", st, wst, GLA_TOL)
+            print(f"[zoo kernels] {label}: max abs err out {e:.3e} "
+                  f"(tolerance {out_tol}), state {es:.3e} (tolerance "
+                  f"{GLA_TOL})", flush=True)
+            if name not in main_gla and dt == "bfloat16":
+                main_gla[name] = (q, k, v, w, u, mode, chunk)
+                err[name] = e
+
+    out = {}
+    fq, fk, fv, B, H, KV, S, D, win = main_fa
+    qpos = torch.arange(S, device=dev)
+    band = (qpos[None, :] <= qpos[:, None]) & (qpos[None, :]
+                                               > qpos[:, None] - win)
+    q4, k4, v4 = (x.view(B, x.shape[0] // B, S, D) for x in (fq, fk, fv))
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                          enable_gqa=True)
+    zoo_close("scaled_dot_product_attention (yardstick)",
+              sdpa.reshape(B * H, S, D),
+              ref.attention(fq, fk, fv, causal=True, window=win),
+              ZOO_TOL["bfloat16"])
+    rows = {"flash_attention": dict(
+        fn=lambda: fa.flash_attention(fq, fk, fv, causal=True, window=win),
+        plain=lambda: ref.attention(fq, fk, fv, causal=True, window=win),
+        lib=lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=band, enable_gqa=True),
+        bytes=2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
+        ops=4 * D * B * H * attention_pairs(S, S, True, win),
+        rate=BF16_OPS_PER_S)}
+    for name, (q, k, v, w, u, mode, chunk) in main_gla.items():
+        bh, S, dk = q.shape
+        dv = v.shape[-1]
+        rows[name] = dict(
+            fn=lambda a=(q, k, v, w, u, mode, chunk): gla.gla_scan(
+                *a[:5], mode=a[5], chunk=a[6]),
+            plain=lambda a=(q, k, v, w, u, mode, chunk): ref.gla_scan(
+                *a[:5], mode=a[5], chunk=a[6]),
+            lib=None,
+            # q, k, v and out in bfloat16, w and u in float32, the float32
+            # state written once
+            bytes=(2 * (q.numel() + k.numel() + v.numel() + bh * S * dv)
+                   + 4 * (w.numel() + (u.numel() if u is not None else 0))
+                   + 4 * bh * dk * dv),
+            ops=bh * gla_flops(S, chunk, dk, dv, mode), rate=FP32_OPS_PER_S)
+    for name, r in rows.items():
+        ms = cuda_ms(r["fn"], iters=50)
+        plain_ms = cuda_ms(r["plain"], iters=20)
+        lib_ms = cuda_ms(r["lib"], iters=50) if r["lib"] is not None else None
+        bms, by = bound(r["bytes"], r["ops"], r["rate"])
+        out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        print(f"[zoo kernels] {name}: kernel {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, library "
+              f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, bound "
+              f"{bms:.6f} ms ({by}: {r['bytes']} B, {r['ops']} ops)",
+              flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 4z
+ZOO_MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def state_close(label: str, got: dict, want: dict) -> float:
+    """The decode states of two models (the card's and the CPU's): every
+    KV cache and recurrent state within ``ZOO_MODEL_TOL``."""
+    worst = 0.0
+    if (got["kv"] is None) != (want["kv"] is None):
+        raise AssertionError(f"{label}: KV caches differ in presence")
+    if got["kv"] is not None:
+        for f in ("k", "v", "length"):
+            worst = max(worst, zoo_close(f"{label} kv.{f}",
+                                         getattr(got["kv"], f).cpu(),
+                                         getattr(want["kv"], f),
+                                         ZOO_MODEL_TOL))
+    for f in sorted(want["rnn"] or {}):
+        worst = max(worst, zoo_close(f"{label} rnn.{f}", got["rnn"][f].cpu(),
+                                     want["rnn"][f], ZOO_MODEL_TOL))
+    return worst
+
+
+def phase_model_path(card: str) -> dict:
+    """hymba-1.5b and rwkv6-7b at full width and 2 layers in float32: the
+    card (kernels) against the CPU (plain versions), one set of weights."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    new = {"hymba-1.5b": ("flash_attention", "ssd_scan"),
+           "rwkv6-7b": ("rwkv6_scan",)}
+    result = {}
+    try:
+        for arch, B, S in (("hymba-1.5b", 2, 2048), ("rwkv6-7b", 2, 1024)):
+            cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                      dtype="float32")
+            t0 = time.perf_counter()
+            cpu = build_model(cfg, device="cpu").init(
+                torch.Generator().manual_seed(0))
+            gpu = build_model(cfg, device="cuda")
+            gpu.load_state_dict(cpu.state_dict())
+            g = torch.Generator().manual_seed(1)
+            toks = torch.randint(0, cfg.vocab, (B, S), generator=g)
+            steps = torch.randint(0, cfg.vocab, (4, B, 1), generator=g)
+            torch.cuda.synchronize()
+            reset_launches()
+            got, gstate = gpu.prefill_fn({"tokens": toks.cuda()})
+            torch.cuda.synchronize()
+            ran = launches()
+            want, wstate = cpu.prefill_fn({"tokens": toks})
+            e = zoo_close(f"{arch} prefill logits", got.cpu(), want,
+                          ZOO_MODEL_TOL)
+            es = state_close(f"{arch} prefill state", gstate, wstate)
+            for k in new[arch]:
+                if ran[k] != cfg.n_layers:
+                    raise AssertionError(f"{arch}: {k} launched {ran[k]} "
+                                         f"times for {cfg.n_layers} layers")
+            ed = 0.0
+            for i in range(4):
+                got, gstate = gpu.decode_fn(gstate, steps[i].cuda(), S + i)
+                want, wstate = cpu.decode_fn(wstate, steps[i], S + i)
+                ed = max(ed, zoo_close(f"{arch} decode step {i} logits",
+                                       got.cpu(), want, ZOO_MODEL_TOL))
+            es = max(es, state_close(f"{arch} decode state", gstate, wstate))
+            print(f"[zoo model] {arch} d={cfg.d_model} 2 layers B={B} S={S} "
+                  f"float32: card == cpu within {ZOO_MODEL_TOL}: prefill "
+                  f"logits max abs err {e:.3e}, 4 teacher-forced decode "
+                  f"steps {ed:.3e}, states {es:.3e}; launches "
+                  f"{ {k: ran[k] for k in new[arch]} } "
+                  f"({time.perf_counter() - t0:.1f} s, {card})", flush=True)
+            result[arch] = {k: ran[k] for k in new[arch]}
+            del cpu, gpu, gstate, wstate
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return result
+
+
+# --------------------------------------------------------------- phase 4s
+def serve_full(arch: str, card: str) -> dict:
+    """``ServeEngine`` at full width and depth in bfloat16 on the card: 4
+    requests of 2048 random tokens in 4 slots, 16 new tokens each."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    slots, prompt, max_new = 4, 2048, 16
+    cfg = dataclasses.replace(get_config(arch), cache_headroom=max_new)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServeEngine(model, batch_slots=slots, prompt_len=prompt)
+    g = torch.Generator().manual_seed(1)
+    reqs = [Request(rid=i, tokens=torch.randint(1, cfg.vocab, (prompt,),
+                                                generator=g).tolist(),
+                    max_new=max_new) for i in range(slots)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def finite(where):
+        if not bool(torch.isfinite(eng.logits).all()):
+            raise AssertionError(f"{arch}: a logit is not finite at {where}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.admit(reqs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ran = launches()
+    finite("the admit")
+    tick_s = []
+    while not all(r.done for r in reqs):
+        t0 = time.perf_counter()
+        eng.tick()     # ends in a host read of the sampled tokens
+        tick_s.append(time.perf_counter() - t0)
+        finite(f"tick {len(tick_s)}")
+        if len(tick_s) > max_new:
+            raise AssertionError(f"{arch}: requests not done after "
+                                 f"{len(tick_s)} ticks")
+    ticks, decode_s = len(tick_s), sum(tick_s)
+    tokens = sum(len(r.out) for r in reqs)
+    for r in reqs:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab
+                                            for t in r.out):
+            raise AssertionError(f"{arch} request {r.rid}: {r.out}")
+    peak = torch.cuda.max_memory_allocated()
+    profile_serve(eng, lambda: [Request(rid=r.rid, tokens=r.tokens,
+                                        max_new=max_new) for r in reqs],
+                  arch, card)
+    nums = dict(params=n_params, init_s=init_s, prefill_s=prefill_s,
+                decode_ms_per_tick=decode_s / ticks * 1e3, ticks=ticks,
+                first_tick_ms=tick_s[0] * 1e3,
+                later_tick_ms=sum(tick_s[1:]) / (ticks - 1) * 1e3,
+                tokens=tokens, tokens_per_s=tokens / (prefill_s + decode_s),
+                decode_tokens_per_s=slots * ticks / decode_s,
+                prompt_tokens_per_s=slots * prompt / prefill_s,
+                peak_gib=peak / 2**30, admit_launches=ran)
+    print(f"[serve] {arch} full width and depth ({n_params} params, "
+          f"bfloat16): {slots} requests x {prompt} prompt tokens, "
+          f"{max_new} new each: prefill {prefill_s:.3f} s "
+          f"({nums['prompt_tokens_per_s']:.1f} prompt tok/s), decode "
+          f"{nums['decode_ms_per_tick']:.3f} ms per tick over {ticks} ticks "
+          f"(the first {nums['first_tick_ms']:.3f} ms, the others "
+          f"{nums['later_tick_ms']:.3f} ms; "
+          f"{nums['decode_tokens_per_s']:.1f} tok/s), {tokens} tokens in "
+          f"{prefill_s + decode_s:.3f} s ({nums['tokens_per_s']:.1f} tok/s), "
+          f"peak memory {nums['peak_gib']:.3f} GiB, weights drawn in "
+          f"{init_s:.2f} s; admit launches {ran} ({card})", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return nums
+
+
+def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
+    """A second admit and three ticks under torch.profiler: the device's
+    busy share of each and the device ops that take the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    for label, fn in (("admit", lambda: eng.admit(make_reqs())),
+                      ("3 ticks", lambda: [eng.tick() for _ in range(3)])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        top = sorted(prof.key_averages(), key=self_device_us, reverse=True)
+        print(f"[profile serve] {arch} {label}: wall {wall_ms:.3f} ms "
+              f"profiled, {len(kern)} device ops, device busy "
+              f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of the wall "
+              f"({card})", flush=True)
+        for e in top[:6]:
+            print(f"[profile serve] {arch} {label}:   "
+                  f"{self_device_us(e) / 1e3:.3f} ms in {e.count} calls of "
+                  f"{e.key[:90]}", flush=True)
+
+
+def phase_serve(card: str) -> dict:
+    runs = {}
+    for arch, want in (("hymba-1.5b", {"flash_attention": 32, "ssd_scan": 32,
+                                       "rwkv6_scan": 0}),
+                       ("rwkv6-7b", {"flash_attention": 0, "ssd_scan": 0,
+                                     "rwkv6_scan": 32})):
+        runs[arch] = serve_full(arch, card)
+        got = {k: runs[arch]["admit_launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arch} admit launches {got}, want {want}")
+    return runs
+
+
+# --------------------------------------------------------------- phase 5z
+def phase_serve_entry() -> None:
+    import torch
+    from repro_torch.launch import serve
+    reset_launches()
+    got = serve.main(["--arch", "hymba-1.5b", "--device", "cuda"])
+    ran = launches()
+    want = serve.main(["--arch", "hymba-1.5b", "--device", "cpu"])
+    keys = ("done", "requests", "tokens")
+    if [got[k] for k in keys] != [want[k] for k in keys]:
+        raise AssertionError(f"serve hymba-1.5b: cuda {got} != cpu {want}")
+    for k in ("flash_attention", "ssd_scan"):
+        if ran[k] == 0:
+            raise AssertionError(f"serve --device cuda never launched {k}")
+    print(f"[serve entry] hymba-1.5b smoke: cuda == cpu "
+          f"({[got[k] for k in keys]}; launches {ran})", flush=True)
+    for arch in ("hymba-1.5b", "rwkv6-7b"):
+        got = serve.main(["--arch", arch, "--full", "--prompt-len", "2048",
+                          "--device", "cuda"])
+        if got["done"] != got["requests"]:
+            raise AssertionError(f"serve --full {arch}: {got}")
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -795,15 +1220,26 @@ def main() -> int:
     phase_profile(card, fused=False)
     phase_profile(card, fused=True)
     phase_entry_point()
+    timings.update(phase_zoo_kernels())
+    phase_model_path(card)
+    served = phase_serve(card)
+    phase_serve_entry()
 
     # launches on each kernel's own path: the stitched run for the four
     # stitched hooks and maxmin_rates, the fused run for fused_select and
-    # ring_slots
+    # ring_slots, the full-depth serve admits for the model zoo's kernels
+    zoo = {"flash_attention": "hymba-1.5b", "ssd_scan": "hymba-1.5b",
+           "rwkv6_scan": "rwkv6-7b"}
     kernels = []
     for name, t in timings.items():
-        run = fused_run if name in ("fused_select", "ring_slots") else main_run
+        if name in zoo:
+            n = served[zoo[name]]["admit_launches"][name]
+        else:
+            run = (fused_run if name in ("fused_select", "ring_slots")
+                   else main_run)
+            n = run["launches"][name]
         kernels.append(dict(name=name, route="cuda", **KERNELS[name],
-                            launches=run["launches"][name], **t))
+                            launches=n, **t))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,8 @@
+"""mixtral-8x22b [moe] — 8 experts top-2, GQA, SWA. [arXiv:2401.04088; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b", family="moe",
+    n_layers=56, d_model=6144, n_heads=48, n_kv=8, d_ff=16384, vocab=32768,
+    n_experts=8, top_k=2, window=4096, rope_theta=1e6,
+)

@@ -1,10 +1,12 @@
-"""What crosses between the two packages: a built scenario and an engine
-state, as plain numpy.
+"""What crosses between the two packages, as plain numpy: a built scenario
+and an engine state of the simulator, and the parameters of a model-zoo
+model.
 
-The system has no weights. Callers that hold JAX objects turn them into
-dicts of numpy arrays themselves (for example
-``{k: np.asarray(v) for k, v in world._asdict().items()}``); this module
-never sees a JAX object.
+The simulator has no weights; the model zoo has. Callers that hold JAX
+objects turn them into dicts of numpy arrays themselves (for example
+``{k: np.asarray(v) for k, v in world._asdict().items()}``, or a params tree
+flattened to ``{"layers/attn/wq": array, ...}``); this module never sees a
+JAX object.
 """
 from __future__ import annotations
 
@@ -22,7 +24,13 @@ _STATE_LEAVES = ("counters", "t_now", "done", "windows", "trace", "trace_n",
 
 
 def _t(a, device):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """numpy to torch on ``device`` (a copy), bfloat16 (the ``ml_dtypes``
+    numpy type of JAX's bfloat16 arrays) included."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def scenario_from_numpy(world: dict, own: dict, init_events: dict,
@@ -62,3 +70,31 @@ def state_to_numpy(st: EngineState) -> dict:
     return {"world": {k: n(v) for k, v in st.world._asdict().items()},
             "pool": {k: n(v) for k, v in st.pool._asdict().items()},
             **{k: n(getattr(st, k)) for k in _STATE_LEAVES}}
+
+
+def model_params_from_numpy(cfg, flat: dict, device="cpu") -> dict:
+    """The port's parameters (a ``Model.state_dict()``) from the reference
+    model's params: ``flat`` maps each tree path joined with ``/`` (for
+    example ``layers/attn/wq``) to a numpy array, the ``layers`` leaves
+    stacked on a leading layer axis. Keys, shapes and dtypes must match the
+    port's ``Model(cfg)``; returns the tensors on ``device``."""
+    from repro_torch.models.model import Model
+    want = Model(cfg, device="meta").state_dict()
+    out = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        t = _t(arr, "cpu")
+        if parts[0] == "layers":
+            for i in range(t.shape[0]):
+                out[".".join(["layers", str(i), *parts[1:]])] = t[i]
+        else:
+            out[".".join(parts)] = t
+    if set(out) != set(want):
+        raise ValueError(f"params do not match {cfg.name}: missing "
+                         f"{sorted(set(want) - set(out))}, unknown "
+                         f"{sorted(set(out) - set(want))}")
+    for k, t in out.items():
+        if t.shape != want[k].shape or t.dtype != want[k].dtype:
+            raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)}, the model "
+                             f"holds {want[k].dtype} {tuple(want[k].shape)}")
+    return {k: t.to(device) for k, t in out.items()}

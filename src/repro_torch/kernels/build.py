@@ -40,8 +40,17 @@ _SIGNATURES = {
         "maxmin_max_smem": [],
         "maxmin_max_order_blocks": [],
     },
+    "flash_attention": {
+        "launch_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    },
+    "rwkv6_scan": {
+        "launch_gla_scan": [_P] * 7 + [_I] * 7 + [_P],
+        "gla_smem_bytes": [_I] * 4,
+        "gla_max_smem": [],
+    },
 }
-_RESTYPES = {"maxmin_smem_bytes": ctypes.c_longlong}
+_RESTYPES = {"maxmin_smem_bytes": ctypes.c_longlong,
+             "gla_smem_bytes": ctypes.c_longlong}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # per source: the library's path, the build's seconds and nvcc's output

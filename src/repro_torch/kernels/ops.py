@@ -1,13 +1,16 @@
 """Device dispatch for the Hopper kernels.
 
 A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor takes
-the hand-written kernel (``event_select``, ``bandwidth_share``), which raises
-on anything it does not accept. There is no fallback from the kernel to the
-plain version. The engine's ``select_fn``/``group_fn``/``trace_fn``/
-``route_fn`` hooks default to these functions, ``spec.fused_select`` binds
-``fused_fn`` and ``slot_fn`` to ``fused_select`` and ``ring_slots``, and the
-flow handlers' ``core.network.maxmin_rates`` calls ``maxmin_rates``, so on
-the card the main path runs the kernels.
+the hand-written kernel (``event_select``, ``bandwidth_share``,
+``flash_attention``, ``rwkv6_scan``/``ssm_scan``), which raises on anything
+it does not accept. There is no fallback from the kernel to the plain
+version. The engine's ``select_fn``/``group_fn``/``trace_fn``/``route_fn``
+hooks default to these functions, ``spec.fused_select`` binds ``fused_fn``
+and ``slot_fn`` to ``fused_select`` and ``ring_slots``, the flow handlers'
+``core.network.maxmin_rates`` calls ``maxmin_rates``, and the model zoo's
+prefill calls ``flash_attention`` (``models/layers.py``) and ``rwkv6_scan``
+and ``ssd_scan`` (``models/linear_rnn.py``), so on the card the main paths
+run the kernels.
 """
 from __future__ import annotations
 
@@ -15,7 +18,10 @@ import torch
 
 from repro_torch.kernels import bandwidth_share as _bs
 from repro_torch.kernels import event_select as _es
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv6_scan as _gla
+from repro_torch.kernels import ssm_scan as _ssd
 
 I32 = torch.int32
 
@@ -102,3 +108,41 @@ def maxmin_rates(inc, bw, active):
                                 active.bool().contiguous(),
                                 _ref.flow_order(F, L, B))
     return _ref.maxmin_rates(inc, bw, active)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (BH, Sq, D), k and v (BKV, Skv, D) -> (BH, Sq, D) causal or
+    sliding-window attention, KV row bh // (BH // BKV) for query row bh."""
+    if _on_card(q):
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    return _ref.attention(q, k, v, causal=causal, window=window)
+
+
+def _tile_heads(u, bh: int):
+    """(H, dk) per-head rows -> (BH, dk) for rows b * H + h."""
+    if bh % u.shape[0]:
+        raise ValueError(f"{u.shape[0]} heads do not tile {bh} rows")
+    return u.repeat(bh // u.shape[0], 1)
+
+
+def rwkv6_scan(q, k, v, w, u, *, chunk: int = 64):
+    """RWKV6 chunked GLA from the zero state: q, k, w (BH, S, dk), v (BH, S,
+    dv), bonus u (H, dk) for rows b * H + h (H = BH: one row each) ->
+    (out (BH, S, dv), state (BH, dk, dv) float32)."""
+    u = _tile_heads(u, q.shape[0])
+    if _on_card(q):
+        return _gla.gla_scan(q.contiguous(), k.contiguous(), v.contiguous(),
+                             w.float().contiguous(), u.float().contiguous(),
+                             mode="k", chunk=chunk)
+    return _ref.gla_scan(q, k, v, w, u, mode="k", chunk=chunk)
+
+
+def ssd_scan(q, k, v, w, *, chunk: int = 64):
+    """SSD chunked scan from the zero state: q = C, k = B (BH, S, dk), v and
+    the decays w (BH, S, dv) -> (out (BH, S, dv), state (BH, dk, dv))."""
+    if _on_card(q):
+        return _ssd.ssd_scan(q.contiguous(), k.contiguous(), v.contiguous(),
+                             w.float().contiguous(), chunk=chunk)
+    return _ref.gla_scan(q, k, v, w, mode="v", chunk=chunk)

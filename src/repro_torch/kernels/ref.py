@@ -6,11 +6,15 @@ Counterparts of ``repro.kernels.ref`` and of the XLA twins in
 front end ``fused_select`` and the max-min water-fill ``maxmin_rates`` (the
 reference's ``core.network.maxmin_rates``). The front-end functions work
 row-wise over a leading agent dimension, inputs (A, n); ``maxmin_rates``
-over a leading lane dimension. These serve CPU tensors and are what
+over a leading lane dimension. The model zoo's kernels have
+theirs too: ``attention`` (``repro.kernels.ref.attention_ref``, the function
+of the Pallas ``flash_attention``) and ``gla_scan`` (the chunked math of the
+Pallas ``gla_pallas`` in both modes). These serve CPU tensors and are what
 ``chip_smoke.py`` holds the CUDA kernels against on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -288,3 +292,80 @@ def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor
     for rate, _newly in _fill_rounds(inc, bw, active):
         pass
     return torch.where(active, rate, 0.0)
+
+
+# ------------------------------------------------------------ model zoo
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (BH, Sq, D), k and v (BKV, Skv, D) with BH % BKV == 0: row bh
+    attends KV row bh // (BH // BKV). Causal or sliding-window (``window``
+    > 0: the last ``window`` keys up to the query's position) softmax in
+    float32, scores scaled by 1/sqrt(D) after the product, masked scores
+    -1e30; the output in q's dtype."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    group = bh // k.shape[0]
+    kr = k.float().repeat_interleave(group, 0)
+    vr = v.float().repeat_interleave(group, 0)
+    s = torch.bmm(q.float(), kr.transpose(1, 2)) * (1.0 / math.sqrt(d))
+    if causal:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(skv, device=q.device)[None, :]
+        mask = kp <= qp
+        if window > 0:
+            mask = mask & (kp > qp - window)
+        s = s.masked_fill(~mask, NEG_INF)
+    return torch.bmm(torch.softmax(s, dim=-1), vr).to(q.dtype)
+
+
+def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor | None = None, *,
+             mode: str = "k", chunk: int = 64):
+    """Chunked gated linear attention from the zero state, the math of
+    ``repro.kernels.rwkv6_scan.gla_pallas``: q, k (BH, S, dk), v (BH, S, dv),
+    w the decays (BH, S, dk) in mode "k" (RWKV6: decay on K, bonus ``u``
+    (BH, dk) on the diagonal) or (BH, S, dv) in mode "v" (SSD: decay on V,
+    inclusive diagonal, no bonus). ``chunk`` must divide S (or exceed it).
+    Returns (out (BH, S, dv) in q's dtype, final state (BH, dk, dv)
+    float32)."""
+    if mode not in ("k", "v"):
+        raise ValueError(f"gla_scan: mode must be 'k' or 'v', got {mode!r}")
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    c = min(chunk, s)
+    if c < 1 or s % c:
+        raise ValueError(f"gla_scan: chunk {chunk} does not divide {s}")
+    qf, kf, vf, wf = (x.float() for x in (q, k, v, w))
+    ii = torch.arange(c, device=q.device)
+    lower = ii[None, :] < ii[:, None]           # (i, j): j < i
+    inclusive = ii[None, :] <= ii[:, None]
+    zero = torch.zeros((), device=q.device)
+    state = torch.zeros((bh, dk, dv), dtype=torch.float32, device=q.device)
+    outs = []
+    for c0 in range(0, s, c):
+        qc, kc, vc, wc = (x[:, c0:c0 + c] for x in (qf, kf, vf, wf))
+        qs = torch.exp(torch.cumsum(torch.log(wc), dim=1))   # inclusive
+        last = qs[:, -1]
+        if mode == "k":
+            r_t = qc * (qs / wc)
+            k_t = kc / qs
+            a = torch.where(lower, torch.bmm(r_t, k_t.transpose(1, 2)), zero)
+            if u is not None:
+                diag = torch.sum(qc * u.float()[:, None, :] * kc, dim=-1)
+                a = a + torch.where(ii[None, :] == ii[:, None],
+                                    diag[:, :, None], zero)
+            outs.append(torch.bmm(r_t, state) + torch.bmm(a, vc))
+            state = (state * last[:, :, None]
+                     + torch.bmm((k_t * last[:, None, :]).transpose(1, 2),
+                                 vc))
+        else:
+            b = torch.where(inclusive, torch.bmm(qc, kc.transpose(1, 2)),
+                            zero)
+            v_t = vc / qs
+            outs.append(qs * (torch.bmm(qc, state) + torch.bmm(b, v_t)))
+            state = last[:, None, :] * (state
+                                        + torch.bmm(kc.transpose(1, 2), v_t))
+    return torch.cat(outs, dim=1).to(q.dtype), state
