@@ -18,8 +18,22 @@ checkout of the repository). Phases, each of which raises on failure:
    max-min water-fill bit for bit at tiered_grid's shapes (2048, 8 and 1
    lanes of 32 flows over 4 links), one lane at every tabled flow-sum
    order, the 64-pod workload's (256 and 1 lanes of 128 flows over 64
-   links) and edge cases; then each timed with CUDA events against the
-   plain version, the bound and, where one exists, a single PyTorch call;
+   links) and edge cases; then each timed with CUDA events (the Python
+   call) and under torch.profiler (the kernel's own device time) against
+   the plain version, the bound and, where one exists, a single PyTorch
+   call;
+3z. the model zoo's kernels against their plain versions on the card, in
+   float32 (attention's FFMA kernel) and bfloat16 (its wgmma kernel), at
+   the serve path's shapes: flash attention at hymba-1.5b's prefill (4 x 25
+   query heads, 4 x 5 KV heads of 64, S 2048, window 1024; also window 0),
+   at S 1000 (windows 1024 and 100), non-causal, D 128 with a window and
+   at the smoke configs' head dim 16; ``rwkv6_scan`` at rwkv6-7b's (4 x 64
+   heads of 64, S 2048, chunk 64) and ``ssd_scan`` at hymba's SSD (4 x 25
+   heads, state 16, head 64), both also at S 1000 (the divisor rule's
+   chunk 50); then each timed (CUDA events and device time) against the
+   plain version, the bound and, for attention,
+   ``scaled_dot_product_attention`` with the same mask, with the achieved
+   TFLOP/s and share of the bound;
 4. the stitched main path at real size: the ``tiered_grid`` scenario
    (WLCG's tier shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8
    agents, pool_cap 4096) through ``Engine.run_local`` on the card, with
@@ -40,15 +54,6 @@ checkout of the repository). Phases, each of which raises on failure:
    with 1 and 4 agents, and with 4 agents under ``--fused-select``, under
    ``--insert-mode ref --merge-mode dense`` and under ``--adaptive-exec``,
    each equal to ``--device cpu`` and to the stitched run;
-3z. the model zoo's kernels against their plain versions on the card, in
-   float32 and bfloat16, at the serve path's shapes: flash attention at
-   hymba-1.5b's prefill (4 x 25 query heads, 4 x 5 KV heads of 64, S 2048,
-   window 1024; also window 0), at S 1000, non-causal and at the smoke
-   configs' head dim 16; ``rwkv6_scan`` at rwkv6-7b's (4 x 64 heads of 64,
-   S 2048, chunk 64) and ``ssd_scan`` at hymba's SSD (4 x 25 heads, state
-   16, head 64), both also at S 1000 (the divisor rule's chunk 50); then
-   each timed against the plain version, the bound and, for attention,
-   ``scaled_dot_product_attention`` with the same mask;
 4z. the model path at full width and 2 layers: hymba-1.5b (B 2, S 2048) and
    rwkv6-7b (B 2, S 1024) in float32 with TF32 off, one set of random
    weights on the card (the kernels) and on the CPU (the plain versions):
@@ -61,7 +66,8 @@ checkout of the repository). Phases, each of which raises on failure:
    at the admit, every logit finite, every token in the vocabulary, every
    request done; prefill seconds, decode ms per tick, tokens per second
    and peak memory; then a second admit and three ticks under
-   torch.profiler (device busy share, the costliest device ops);
+   torch.profiler (device busy share, the costliest device ops and the
+   port's kernels);
 5z. the serve entry point, ``repro_torch.launch.serve --arch hymba-1.5b``
    (smoke config) on the card and on the CPU with the same request and
    token counts, then ``--full --prompt-len 2048`` on the card for both
@@ -173,6 +179,36 @@ def cuda_ms(fn, iters: int = 200) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20, repeats: int = 5) -> float:
+    """The kernel's own device time per launch: ``iters`` calls of ``fn``
+    under torch.profiler, the device time of the ops whose name contains
+    ``kernel`` (one a call) over their count. A profile can lose records
+    (CUPTI holds back those it has not completed when the profile stops),
+    so the profile repeats, up to ``repeats`` times, until half the
+    launches are recorded; the mean is over the records held. Beside ``cuda_ms``, which
+    also counts the wrapper's host time when that is the longer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    us = []
+    for _ in range(repeats):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us += [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) >= iters // 2:
+            break
+    if not us:
+        raise AssertionError(f"{kernel}: no device op in {repeats} "
+                             f"profiles of {iters} calls")
+    return sum(us) / 1e3 / len(us)
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -347,13 +383,16 @@ def phase_kernels(es, ref) -> dict:
     out = {}
     for name, r in rows.items():
         ms = cuda_ms(r["fn"])
+        dev_ms = device_ms(r["fn"], f"{name}_kernel")
         plain_ms = cuda_ms(r["plain"])
         lib_ms = cuda_ms(r["lib"]) if r["lib"] is not None else None
         bms, by = bound(r["bytes"], r["ops"])
-        out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bms, bound_by=by)
-        print(f"[kernels] {name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms,"
-              f" library {lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, "
+        out[name] = dict(max_abs_err=err[name], ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by)
+        print(f"[kernels] {name}: kernel {ms:.6f} ms (device {dev_ms:.6f} "
+              f"ms), plain {plain_ms:.6f} ms, library "
+              f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, "
               f"bound {bms:.9f} ms ({by})", flush=True)
     return out
 
@@ -530,6 +569,8 @@ def phase_maxmin(g) -> dict:
         order = ref.flow_order(F, L, B)
         big = F * L >= 4096
         ms = cuda_ms(lambda: bs.maxmin_rates(inc, bw, act, order))
+        dev_ms = device_ms(lambda: bs.maxmin_rates(inc, bw, act, order),
+                           "maxmin_kernel")
         plain_ms = cuda_ms(lambda: ref.maxmin_rates(inc, bw, act),
                            iters=10 if big else 200)
         # inc, bw, active read once, the rates written once; per round two
@@ -539,11 +580,12 @@ def phase_maxmin(g) -> dict:
                         4 * F * L * maxmin_rounds(inc, bw, act),
                         FP32_OPS_PER_S)
         print(f"[kernels] maxmin_rates B={B} F={F} L={L}: kernel {ms:.6f} "
-              f"ms, plain {plain_ms:.6f} ms, library None ms, bound "
-              f"{bms:.9f} ms ({by})", flush=True)
+              f"ms (device {dev_ms:.6f} ms), plain {plain_ms:.6f} ms, "
+              f"library None ms, bound {bms:.9f} ms ({by})", flush=True)
         if not out:
-            out = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, bound_ms=bms, bound_by=by)
+            out = dict(max_abs_err=0, ms=ms, device_ms=dev_ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                       bound_by=by)
     return out
 
 
@@ -753,6 +795,8 @@ def phase_profile(card: str, fused: bool, start: int = 150,
                              ProfilerActivity.CUDA]) as prof:
         st, prof_ms = steps(st)
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError(f"{tag}: the profile holds no device op")
     busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
     print(f"{tag} windows {start}..{start + 2 * n}: {plain_ms:.3f} "
           f"ms/window unprofiled, {prof_ms:.3f} ms/window profiled; "
@@ -857,11 +901,18 @@ def phase_zoo_kernels() -> dict:
 
     err = {"flash_attention": 0.0, "rwkv6_scan": 0.0, "ssd_scan": 0.0}
     # (B, H, KV, S, D, causal, window): hymba's prefill at the serve batch,
-    # window 0, a length that is no multiple of the 64-row tile, a
-    # non-causal call (KV length 2 S), the smoke configs' head dim 16
+    # window 0, a length that is no multiple of the tiles, a non-causal call
+    # (KV length 2 S), the smoke configs' head dim 16; then the edges of the
+    # bf16 kernel's 128-row query blocks and 64-key tiles: a window that is
+    # no multiple of either, D 128 (two TMA boxes a row) with a window,
+    # non-causal with Sq and Skv no multiples of either
     fa_cases = [(4, 25, 5, 2048, 64, True, 1024), (4, 25, 5, 2048, 64, True, 0),
                 (2, 25, 5, 1000, 64, True, 1024), (2, 6, 2, 100, 128, False, 0),
-                (2, 4, 2, 32, 16, True, 32), (1, 9, 3, 130, 32, True, 64)]
+                (2, 4, 2, 32, 16, True, 32), (1, 9, 3, 130, 32, True, 64),
+                (2, 25, 5, 1000, 64, True, 100),
+                (1, 10, 2, 2048, 128, True, 1024),
+                (2, 9, 3, 130, 64, False, 0)]
+    fa_kernel = {"float32": "FFMA kernel", "bfloat16": "wgmma kernel"}
     main_fa = None
     for B, H, KV, S, D, causal, win in fa_cases:
         skv = S if causal else 2 * S
@@ -876,8 +927,9 @@ def phase_zoo_kernels() -> dict:
                           ref.attention(q, k, v, causal=causal, window=win),
                           ZOO_TOL[dt])
             print(f"[zoo kernels] flash_attention B={B} H={H} KV={KV} S={S} "
-                  f"D={D} causal={causal} window={win} {dt}: max abs err "
-                  f"{e:.3e} (tolerance {ZOO_TOL[dt]})", flush=True)
+                  f"D={D} causal={causal} window={win} {dt} "
+                  f"({fa_kernel[dt]}): max abs err {e:.3e} (tolerance "
+                  f"{ZOO_TOL[dt]})", flush=True)
             if main_fa is None and dt == "bfloat16":
                 main_fa = (q, k, v, B, H, KV, S, D, win)
                 err["flash_attention"] = e
@@ -929,7 +981,7 @@ def phase_zoo_kernels() -> dict:
             q4, k4, v4, attn_mask=band, enable_gqa=True),
         bytes=2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
         ops=4 * D * B * H * attention_pairs(S, S, True, win),
-        rate=BF16_OPS_PER_S)}
+        rate=BF16_OPS_PER_S, kernel="fa_wgmma_kernel")}
     for name, (q, k, v, w, u, mode, chunk) in main_gla.items():
         bh, S, dk = q.shape
         dv = v.shape[-1]
@@ -944,19 +996,23 @@ def phase_zoo_kernels() -> dict:
             bytes=(2 * (q.numel() + k.numel() + v.numel() + bh * S * dv)
                    + 4 * (w.numel() + (u.numel() if u is not None else 0))
                    + 4 * bh * dk * dv),
-            ops=bh * gla_flops(S, chunk, dk, dv, mode), rate=FP32_OPS_PER_S)
+            ops=bh * gla_flops(S, chunk, dk, dv, mode), rate=FP32_OPS_PER_S,
+            kernel="gla_kernel")
     for name, r in rows.items():
         ms = cuda_ms(r["fn"], iters=50)
+        dev_ms = device_ms(r["fn"], r["kernel"])
         plain_ms = cuda_ms(r["plain"], iters=20)
         lib_ms = cuda_ms(r["lib"], iters=50) if r["lib"] is not None else None
         bms, by = bound(r["bytes"], r["ops"], r["rate"])
-        out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bms, bound_by=by)
-        print(f"[zoo kernels] {name}: kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, library "
+        out[name] = dict(max_abs_err=err[name], ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by)
+        print(f"[zoo kernels] {name}: kernel {ms:.6f} ms (device "
+              f"{dev_ms:.6f} ms), plain {plain_ms:.6f} ms, library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, bound "
-              f"{bms:.6f} ms ({by}: {r['bytes']} B, {r['ops']} ops)",
-              flush=True)
+              f"{bms:.6f} ms ({by}: {r['bytes']} B, {r['ops']} ops); "
+              f"{r['ops'] / ms / 1e9:.1f} TFLOP/s, {bms / ms:.4f} of the "
+              f"bound", flush=True)
     return out
 
 
@@ -1142,13 +1198,21 @@ def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kern:
+            raise AssertionError(f"{arch} {label}: the profile holds no "
+                                 f"device op")
         busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         top = sorted(prof.key_averages(), key=self_device_us, reverse=True)
         print(f"[profile serve] {arch} {label}: wall {wall_ms:.3f} ms "
               f"profiled, {len(kern)} device ops, device busy "
               f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of the wall "
               f"({card})", flush=True)
-        for e in top[:6]:
+        # the six costliest device ops, then the port's kernels among the
+        # rest (attention's share of the admit)
+        ours = [e for e in top[6:] if any(
+            k in e.key for k in ("fa_wgmma_kernel", "fa_ffma_kernel",
+                                 "gla_kernel"))]
+        for e in top[:6] + ours:
             print(f"[profile serve] {arch} {label}:   "
                   f"{self_device_us(e) / 1e3:.3f} ms in {e.count} calls of "
                   f"{e.key[:90]}", flush=True)
@@ -1214,13 +1278,15 @@ def main() -> int:
               flush=True)
     timings = phase_kernels(es, ref)
     timings["maxmin_rates"] = phase_maxmin(torch.Generator().manual_seed(1))
+    # before phase 4's profiles: after a long profiled run, a short one
+    # records no device op (device_ms needs them)
+    timings.update(phase_zoo_kernels())
     main_run = phase_main_path(card)
     fused_run = phase_fused_path(card, main_run)
     phase_workload(card)
     phase_profile(card, fused=False)
     phase_profile(card, fused=True)
     phase_entry_point()
-    timings.update(phase_zoo_kernels())
     phase_model_path(card)
     served = phase_serve(card)
     phase_serve_entry()

@@ -1,11 +1,13 @@
 """Wrapper of the CUDA flash attention (``csrc/flash_attention.cu``).
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` on its
-(BH, S, D) layout. The wrapper checks device, dtype, shape and contiguity,
-allocates the output with ``torch.empty``, launches on the current stream,
-raises if the launch was refused or the kernel does not take the shape, and
-adds one to :data:`LAUNCHES`. It takes CUDA tensors only; ``ops`` sends CPU
-tensors to the plain version in ``ref``.
+(BH, S, D) layout. bfloat16 runs the tensor-core kernel (wgmma from a
+TMA-filled K/V ring; 16-byte aligned tensors), float32 the FFMA kernel; the
+source picks by dtype. The wrapper checks device, dtype, shape and
+contiguity, allocates the output with ``torch.empty``, launches on the
+current stream, raises if the launch was refused or the kernel does not take
+the shape, and adds one to :data:`LAUNCHES`. It takes CUDA tensors only;
+``ops`` sends CPU tensors to the plain version in ``ref``.
 """
 from __future__ import annotations
 

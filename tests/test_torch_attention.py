@@ -4,10 +4,11 @@ against the JAX Pallas ``flash_attention`` in interpret mode and
 ``repro.kernels.ref.attention_ref``, at tests/test_kernels.py's tolerances
 (2e-6 in float32, 2e-2 in bfloat16). Inputs come from a numpy seed and are
 cast to the working dtype by both frameworks (the same round-to-nearest).
-Three cases cover GQA (groups 5, 3 and 2), a window, a length that is not a
-multiple of the kernel's 64-row tile, bfloat16 and a non-causal call; the
-first also runs the model's layout, (b, s, heads, head_dim) flattened to
-head-major rows, against the JAX model's ``_chunked_attention``.
+Four cases cover GQA (groups 5, 3 and 2), windows, lengths that are not a
+multiple of the kernels' 64- and 128-row blocks, bfloat16 and a non-causal
+call; the cases with a window also run the model's layout, (b, s, heads,
+head_dim) flattened to head-major rows, against the JAX model's
+``_chunked_attention``.
 """
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ from repro_torch.models import layers as L  # noqa: E402
     (10, 2, 48, 48, 16, True, 32, "float32", 16),     # hymba-like: group 5
     (6, 2, 64, 64, 32, True, 0, "bfloat16", 32),      # smollm-like: group 3
     (4, 2, 32, 64, 64, False, 0, "float32", 32),      # cross-attention shape
+    # the card's bf16 edge: a window that is no multiple of any tile, group 5
+    (10, 2, 200, 200, 64, True, 100, "bfloat16", 40),
 ])
 def test_plain_attention_matches_pallas_and_ref(bh, bkv, sq, skv, d, causal,
                                                 window, dtype, block):
