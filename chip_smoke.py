@@ -11,26 +11,31 @@ checkout of the repository). Phases, each of which raises on failure:
    one nvcc per source, all started together;
 3. kernels: each of the six window front-end kernels against its plain
    PyTorch version on the card, byte for byte, at the main paths' shapes
-   (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384; group
-   over 256 rows with 8 kinds; trace over 256; route over 4096 rows with 9
-   buckets; fused_select over pool_cap 4096 -> 256, also 1000 and 16384;
-   ring_slots over a 4096 ring and 4096 rows) and on edge cases; the
+   (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384, on
+   the adversarial pools of tests/test_torch_select.py and m from 1 to
+   cap; group over 256 rows with 8 kinds; trace over 256, int32, bool and
+   uint8 masks; route over 4096 rows with 9 buckets; fused_select over
+   pool_cap 4096 -> 256, also 1000 and 16384; ring_slots over a 4096 ring
+   and 4096 rows) and on edge cases; the
    max-min water-fill bit for bit at tiered_grid's shapes (2048, 8 and 1
    lanes of 32 flows over 4 links), one lane at every tabled flow-sum
    order, the 64-pod workload's (256 and 1 lanes of 128 flows over 64
    links) and edge cases; then each timed with CUDA events (the Python
    call) and under torch.profiler (the kernel's own device time) against
    the plain version, the bound and, where one exists, a single PyTorch
-   call;
+   call; then trace_rank as the engine calls it (a bool mask through
+   ``ops``) and where its call's host time goes, piece by piece;
 3z. the model zoo's kernels against their plain versions on the card, in
    float32 (attention's FFMA kernel) and bfloat16 (its wgmma kernel), at
    the serve path's shapes: flash attention at hymba-1.5b's prefill (4 x 25
    query heads, 4 x 5 KV heads of 64, S 2048, window 1024; also window 0),
-   at S 1000 (windows 1024 and 100), non-causal, D 128 with a window and
-   at the smoke configs' head dim 16; ``rwkv6_scan`` at rwkv6-7b's (4 x 64
-   heads of 64, S 2048, chunk 64) and ``ssd_scan`` at hymba's SSD (4 x 25
-   heads, state 16, head 64), both also at S 1000 (the divisor rule's
-   chunk 50); then each timed (CUDA events and device time) against the
+   at S 1000 (windows 1024 and 100), non-causal, D 128 with a window,
+   at the smoke configs' head dim 16, and causal with Sq != Skv (fewer
+   queries than keys and more, with and without a window; the largest
+   error of those against 2e-6 and 2e-2); ``rwkv6_scan`` at rwkv6-7b's
+   (4 x 64 heads of 64, S 2048, chunk 64) and ``ssd_scan`` at hymba's SSD
+   (4 x 25 heads, state 16, head 64), both also at S 1000 (the divisor
+   rule's chunk 50); then each timed (CUDA events and device time) against the
    plain version, the bound and, for attention,
    ``scaled_dot_product_attention`` with the same mask, with the achieved
    TFLOP/s and share of the bound;
@@ -254,8 +259,44 @@ def max_err(got, want) -> int:
     return err
 
 
+def select_pool(ri, mode, A, cap, m):
+    """(A, cap) int32 time keys and seqs on the card for a select_events
+    case, the pools of tests/test_torch_select.py."""
+    import torch
+    from repro_torch.kernels import ref
+    T_INF = 2**31 - 1
+
+    def perm(n):   # a random permutation of each row's slots
+        return torch.argsort(ri(0, 1 << 30, (A, cap)), dim=1)[:, :n]
+
+    tk, sq = ri(0, 64, (A, cap)), ri(0, 1 << 20, (A, cap))
+    if mode == "rand":
+        tk = torch.where(ri(0, 4, (A, cap)) == 0, T_INF, tk)
+    elif mode == "unsafe":
+        tk = torch.full_like(tk, T_INF)
+    elif mode == "ties":
+        tk, sq = torch.full_like(tk, 7), torch.full_like(sq, 3)
+    elif mode == "one_time":
+        tk, sq = torch.full_like(tk, 5), perm(cap).int()
+    elif mode == "neg_seq":
+        sq = ri(-2**31, 2**31 - 1, (A, cap))
+        tk = torch.where(ri(0, 2, (A, cap)) == 0, T_INF, tk)
+    elif mode == "full_range":
+        tk, sq = ri(-2**31, 2**31 - 1, (A, cap)), ri(-2**31, 2**31 - 1,
+                                                     (A, cap))
+    elif mode == "few_keys":   # 16 keys: the boundary key repeats across m
+        tk, sq = ri(0, 4, (A, cap)), ri(0, 4, (A, cap))
+    elif mode == "boundary":   # the m-th key copied onto 40 slots
+        b = ref.sort_events(tk, sq)[:, m - 1:m].long()
+        at = perm(40)
+        tk = tk.scatter(1, at, tk.gather(1, b).expand(-1, 40))
+        sq = sq.scatter(1, at, sq.gather(1, b).expand(-1, 40))
+    return tk.contiguous(), sq.contiguous()
+
+
 def phase_kernels(es, ref) -> dict:
     import torch
+    from repro_torch.kernels import ops
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     T_INF = 2**31 - 1
@@ -266,21 +307,24 @@ def phase_kernels(es, ref) -> dict:
                              dtype=torch.int32).to(dev)
 
     err = {k: 0 for k in es.LAUNCHES}
-    # select: random keys with unsafe (T_INF) slots, all unsafe, all ties,
-    # exec_cap > cap, caps 1000 / 4096 / 16384
+    # select (the radix selection for 2m <= min(n_pad, 1024), else the
+    # bitonic sort): random keys with unsafe (T_INF) slots, all unsafe, all
+    # ties, one time with distinct seqs, negative seqs, the full int32
+    # range, 16 distinct keys, the m-th key copied onto 40 slots; caps
+    # 1000 / 4096 / 16384; m = 1, 512 and 513 (the threshold), m = cap,
+    # exec_cap > cap (tests/test_torch_select.py models the same pools)
     for cap, m, mode in [(4096, 256, "rand"), (1000, 256, "rand"),
                          (16384, 256, "rand"), (4096, 256, "unsafe"),
                          (4096, 256, "ties"), (1000, 1500, "rand"),
-                         (256, 256, "rand")]:
-        tk = ri(0, 64, (A, cap))
-        sq = ri(0, 1 << 20, (A, cap))
-        if mode == "rand":
-            tk = torch.where(ri(0, 4, (A, cap)) == 0, T_INF, tk)
-        elif mode == "unsafe":
-            tk = torch.full_like(tk, T_INF)
-        else:
-            tk = torch.full_like(tk, 7)
-            sq = torch.full_like(sq, 3)
+                         (256, 256, "rand"), (4096, 256, "one_time"),
+                         (4096, 256, "neg_seq"), (4096, 256, "full_range"),
+                         (4096, 256, "few_keys"), (4096, 256, "boundary"),
+                         (1000, 256, "ties"), (16384, 256, "neg_seq"),
+                         (16384, 256, "few_keys"), (4096, 1, "rand"),
+                         (4096, 1, "ties"), (4096, 512, "rand"),
+                         (4096, 512, "boundary"), (4096, 513, "rand"),
+                         (4096, 4096, "rand"), (33, 16, "ties")]:
+        tk, sq = select_pool(ri, mode, A, cap, min(m, cap))
         err["select_events"] = max(err["select_events"], max_err(
             es.select_events(tk, sq, m), ref.select_events(tk, sq, m)))
         print(f"[kernels] select_events cap={cap} exec_cap={m} {mode}: equal",
@@ -298,13 +342,20 @@ def phase_kernels(es, ref) -> dict:
             es.group_by_kind(kd, ac, 8), ref.group_by_kind(kd, ac, 8)))
         print(f"[kernels] group_by_kind m=256 n_kinds=8 {mode}: equal",
               flush=True)
+    # trace: int32 masks, and bool and uint8 ones (the engine's exec_safe,
+    # read as it comes), also through ops as the engine calls it
     for mode in ("rand", "none", "all"):
         mk = {"rand": ri(0, 2, (A, 256)),
               "none": torch.zeros((A, 256), dtype=torch.int32, device=dev),
               "all": torch.ones((A, 256), dtype=torch.int32, device=dev)}[mode]
+        for m_dt in (torch.int32, torch.bool, torch.uint8):
+            x = mk.to(m_dt)
+            err["trace_rank"] = max(err["trace_rank"], max_err(
+                es.trace_rank(x), ref.trace_rank(x)))
         err["trace_rank"] = max(err["trace_rank"], max_err(
-            es.trace_rank(mk), ref.trace_rank(mk)))
-        print(f"[kernels] trace_rank n=256 {mode}: equal", flush=True)
+            ops.trace_rank(mk.bool()), ref.trace_rank(mk.bool())))
+        print(f"[kernels] trace_rank n=256 {mode} (int32, bool, uint8, "
+              f"ops bool): equal", flush=True)
     for mode in ("rand", "sentinel", "one"):
         d = ri(0, 9, (A, 4096))
         if mode == "sentinel":
@@ -329,6 +380,7 @@ def phase_kernels(es, ref) -> dict:
     key = torch.where(ac.bool(), kd, nk)
     n_pad = 4096
     stages = (n_pad.bit_length() - 1) * n_pad.bit_length() // 2
+    log_m = m.bit_length() - 1
     # the stable sort of the packed (time_key << 32) | seq key is one
     # PyTorch call for select_events (both halves are non-negative, so the
     # int64 order is the (time, seq) order; ties fall to the slot index as
@@ -348,7 +400,8 @@ def phase_kernels(es, ref) -> dict:
             fn=lambda: es.select_events(tk, sq, m),
             plain=lambda: ref.select_events(tk, sq, m),
             lib=lambda: torch.argsort(packed, dim=1, stable=True)[:, :m],
-            bytes=A * cap * 8 + A * m * 4, ops=A * (n_pad // 2) * stages),
+            # a selection looks at every key once and orders the m it keeps
+            bytes=A * cap * 8 + A * m * 4, ops=A * (cap + m * log_m)),
         "fused_select": dict(
             fn=lambda: es.fused_select(*fs_in, m, **fs_kw),
             plain=lambda: ref.fused_select(*fs_in, m, **fs_kw), lib=None,
@@ -394,7 +447,87 @@ def phase_kernels(es, ref) -> dict:
               f"ms), plain {plain_ms:.6f} ms, library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, "
               f"bound {bms:.9f} ms ({by})", flush=True)
+    trace_rank_call(es, ops, mk, out["trace_rank"])
     return out
+
+
+def host_us(fn, n: int = 5000) -> float:
+    """Mean host time of ``fn()`` in microseconds over ``n`` calls
+    (``time.perf_counter``), after a warm-up, the card idle before and
+    synchronised after."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def trace_rank_call(es, ops, mk, row: dict) -> None:
+    """trace_rank as the engine calls it (``ops.trace_rank`` on a bool
+    (8, 256) mask) beside the int32 row, against ``cumsum`` of the same
+    mask; then where a call's host time goes, piece by piece (the mean
+    ``time.perf_counter`` of each piece alone). Adds the engine-shaped
+    times to ``row``."""
+    import torch
+    mb = mk.bool()
+    A, n = mb.shape
+    ms = cuda_ms(lambda: ops.trace_rank(mb))
+    dev_ms = device_ms(lambda: ops.trace_rank(mb), "trace_rank_kernel")
+    before_ms = cuda_ms(lambda: es.trace_rank(mb.to(torch.int32)
+                                              .contiguous()))
+    lib_ms = cuda_ms(lambda: torch.cumsum(mb, dim=1, dtype=torch.int32))
+    row.update(engine_ms=ms, engine_device_ms=dev_ms,
+               engine_library_ms=lib_ms)
+    print(f"[kernels] trace_rank as the engine calls it (ops, bool "
+          f"{A}x{n}): {ms:.6f} ms (device {dev_ms:.6f} ms); with the int32 "
+          f"copy the port made before: {before_ms:.6f} ms; cumsum of the "
+          f"bool mask {lib_ms:.6f} ms", flush=True)
+    # the call against cumsum in turns (the host's time moves between
+    # timings): five rounds of kernel, cumsum for each mask, the medians
+    turns = {"int32": (lambda: es.trace_rank(mk),
+                       lambda: torch.cumsum(mk, dim=1, dtype=torch.int32)),
+             "bool, ops": (lambda: ops.trace_rank(mb),
+                           lambda: torch.cumsum(mb, dim=1,
+                                                dtype=torch.int32))}
+    for what, (fn, lib_fn) in turns.items():
+        ks, cs = [], []
+        for _ in range(5):
+            ks.append(cuda_ms(fn))
+            cs.append(cuda_ms(lib_fn))
+        km, cm = sorted(ks)[2], sorted(cs)[2]
+        print(f"[kernels] trace_rank in turns with cumsum ({what}): median "
+              f"{km:.6f} ms against {cm:.6f} ms ({km / cm:.3f}x); rounds "
+              f"{[round(x, 6) for x in ks]} / {[round(x, 6) for x in cs]}",
+              flush=True)
+    lib = es._lib()
+    out = torch.empty_like(mb, dtype=torch.int32)
+    pm, po, stream = mb.data_ptr(), out.data_ptr(), es._stream(mb)
+    pieces = {
+        "check": lambda: es._check_mask(mb),
+        "allocation": lambda: torch.empty_like(mb, dtype=torch.int32),
+        "stream (raw handle)": lambda: es._stream(mb),
+        "stream (torch.cuda.current_stream, as before)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "data_ptr x2": lambda: (mb.data_ptr(), out.data_ptr()),
+        "ctypes call (the launch)":
+            lambda: lib.launch_trace_rank(pm, 1, po, A, n, stream),
+        "cast to int32 (ops before)":
+            lambda: mb.to(torch.int32).contiguous(),
+        "whole: es.trace_rank(bool)": lambda: es.trace_rank(mb),
+        "whole: es.trace_rank(int32)": lambda: es.trace_rank(mk),
+        "whole: ops.trace_rank(bool), the engine's":
+            lambda: ops.trace_rank(mb),
+        "whole: cumsum (bool)":
+            lambda: torch.cumsum(mb, dim=1, dtype=torch.int32),
+    }
+    for what, fn in pieces.items():
+        print(f"[kernels] trace_rank call path: {what}: "
+              f"{host_us(fn):.3f} us host", flush=True)
 
 
 def fused_inputs(ri, g, A, cap, density, tail, one_key=False,
@@ -549,6 +682,7 @@ def phase_maxmin(g) -> dict:
         max_err(got.view(torch.int32), want.view(torch.int32))
         print(f"[kernels] maxmin_rates B={B} F={F} L={L} head={order.head}"
               f" chains={order.chains} tail_lanes={order.tail_lanes}"
+              f" trailing={order.trailing}"
               f"{' ' + edge if edge else ''}: equal", flush=True)
         return inc, bw, act
 
@@ -905,34 +1039,49 @@ def phase_zoo_kernels() -> dict:
     # (KV length 2 S), the smoke configs' head dim 16; then the edges of the
     # bf16 kernel's 128-row query blocks and 64-key tiles: a window that is
     # no multiple of either, D 128 (two TMA boxes a row) with a window,
-    # non-causal with Sq and Skv no multiples of either
+    # non-causal with Sq and Skv no multiples of either; then causal calls
+    # with Sq != Skv (the reference's mask has no offset), fewer queries
+    # than keys and more, with and without a window: at Sq 1000, Skv 300,
+    # window 100 rows 399 on have no key in their band (the mean of every
+    # value, as the reference's softmax of -1e30 scores gives)
     fa_cases = [(4, 25, 5, 2048, 64, True, 1024), (4, 25, 5, 2048, 64, True, 0),
                 (2, 25, 5, 1000, 64, True, 1024), (2, 6, 2, 100, 128, False, 0),
                 (2, 4, 2, 32, 16, True, 32), (1, 9, 3, 130, 32, True, 64),
                 (2, 25, 5, 1000, 64, True, 100),
                 (1, 10, 2, 2048, 128, True, 1024),
                 (2, 9, 3, 130, 64, False, 0)]
+    fa_cases = [c[:4] + (c[3] if c[5] else 2 * c[3],) + c[4:]
+                for c in fa_cases] + [
+        (2, 25, 5, 300, 1000, 64, True, 0),
+        (2, 25, 5, 1000, 300, 64, True, 100),
+        (1, 10, 2, 130, 700, 128, True, 100),
+        (1, 9, 3, 700, 130, 32, True, 0)]
     fa_kernel = {"float32": "FFMA kernel", "bfloat16": "wgmma kernel"}
     main_fa = None
-    for B, H, KV, S, D, causal, win in fa_cases:
-        skv = S if causal else 2 * S
+    cross_err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, H, KV, S, skv, D, causal, win in fa_cases:
         for dt in ("float32", "bfloat16"):
             tdt = getattr(torch, dt)
             q, k, v = (rn(B * h, n, D, dtype=tdt) for h, n in
                        ((H, S), (KV, skv), (KV, skv)))
-            e = zoo_close(f"flash_attention {B}x{H}/{KV} S={S} D={D} "
-                          f"causal={causal} window={win} {dt}",
+            e = zoo_close(f"flash_attention {B}x{H}/{KV} S={S} Skv={skv} "
+                          f"D={D} causal={causal} window={win} {dt}",
                           fa.flash_attention(q, k, v, causal=causal,
                                              window=win),
                           ref.attention(q, k, v, causal=causal, window=win),
                           ZOO_TOL[dt])
             print(f"[zoo kernels] flash_attention B={B} H={H} KV={KV} S={S} "
-                  f"D={D} causal={causal} window={win} {dt} "
+                  f"Skv={skv} D={D} causal={causal} window={win} {dt} "
                   f"({fa_kernel[dt]}): max abs err {e:.3e} (tolerance "
                   f"{ZOO_TOL[dt]})", flush=True)
             if main_fa is None and dt == "bfloat16":
                 main_fa = (q, k, v, B, H, KV, S, D, win)
                 err["flash_attention"] = e
+            if causal and S != skv:
+                cross_err[dt] = max(cross_err[dt], e)
+    print(f"[zoo kernels] flash_attention causal Sq != Skv: largest error "
+          f"float32 {cross_err['float32']:.3e} (tolerance 2e-6), bfloat16 "
+          f"{cross_err['bfloat16']:.3e} (tolerance 2e-2)", flush=True)
     # (BH, S, dk, dv, chunk, mode): rwkv6-7b's time mix and hymba's SSD at
     # the serve batch; S 1000 takes the divisor rule's chunk 50; the smoke
     # configs' widths

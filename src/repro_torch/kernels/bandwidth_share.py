@@ -34,13 +34,13 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
 def _pack_order(order: FlowOrder, n_flows: int, max_blocks: int) -> int:
     """Check a flow-sum order against what the kernel takes; return its
     block order as 4-bit fields of one unsigned 64-bit integer."""
-    V, blocks, chains, W = order
-    n_blocks, tail = V // 8, n_flows - V
+    V, blocks, chains, W, trailing = order
+    n_blocks, tail = V // 8, n_flows - V - trailing
     ok = (V % 8 == 0 and 0 <= V <= n_flows and n_blocks <= max_blocks
           and sorted(blocks) == list(range(n_blocks)) and chains >= 1
-          and W in (1, 2, 4, 8))
+          and W in (1, 2, 4, 8) and trailing >= 0 and tail >= 0)
     if V == 0:
-        ok = ok and chains == 1 and W == 1
+        ok = ok and chains == 1 and W == 1 and trailing == 0
     else:
         ok = ok and n_blocks % chains == 0 and (
             W == 1 or (tail >= W and tail % W == 0))
@@ -76,7 +76,7 @@ def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
     err = lib.launch_maxmin_rates(
         inc.data_ptr(), bw.data_ptr(), active.data_ptr(), out.data_ptr(), B,
         F, L, order.head, packed, order.chains, order.tail_lanes,
-        torch.cuda.current_stream().cuda_stream)
+        order.trailing, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"maxmin_rates: CUDA launch failed with error "
                            f"{err}")

@@ -27,7 +27,7 @@ _SIGNATURES = {
     "event_select": {
         "launch_select_events": [_P, _P, _P, _I, _I, _I, _I, _P],
         "launch_group_by_kind": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "launch_trace_rank": [_P, _P, _I, _I, _P],
+        "launch_trace_rank": [_P, _I, _P, _I, _I, _P],
         "launch_route_rank": [_P, _P, _I, _I, _I, _P],
         "launch_ring_slots": [_P, _P, _P, _P, _I, _I, _I, _P],
         "launch_fused_select": [_P] * 27 + [_I] * 7 + [_P],
@@ -35,7 +35,7 @@ _SIGNATURES = {
     },
     "bandwidth_share": {
         "launch_maxmin_rates": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                ctypes.c_ulonglong, _I, _I, _P],
+                                ctypes.c_ulonglong, _I, _I, _I, _P],
         "maxmin_smem_bytes": [_I, _I],
         "maxmin_max_smem": [],
         "maxmin_max_order_blocks": [],

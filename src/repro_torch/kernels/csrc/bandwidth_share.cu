@@ -22,8 +22,8 @@
 // bit for bit. The per-link sum of frozen rates runs in the plain version's
 // order, which the host passes (kernels/ref.py::FlowOrder): eight lane
 // accumulators over a head of V flows in a given block order, added by
-// halves, then the other flows in 1, 2, 4 or 8 interleaved sums (V = 0:
-// left to right). Every add, multiply and
+// halves, then the other flows in 1, 2, 4 or 8 interleaved sums, then the
+// last T flows one at a time (V = 0: left to right). Every add, multiply and
 // divide is an IEEE round-to-nearest intrinsic, so nothing is contracted into
 // a fused multiply-add; the constants are float literals, so no comparison is
 // promoted to double. The unfrozen counts are sums of 0/1 values, exact in
@@ -63,11 +63,12 @@ __device__ __forceinline__ float term(const float* inc, int ld,
 // The sum over flows of inc[f][l] * rf[f] in the plain version's order
 // (kernels/ref.py::FlowOrder): eight lane accumulators over the first V
 // flows, each lane's blocks in `chains` runs summed in turn, the lanes added
-// by halves; then the flows V.. in W interleaved sums (lane 0 starting from
-// the head's total), added by halves. V = 0: left to right.
+// by halves; then the flows V .. F - T - 1 in W interleaved sums (lane 0
+// starting from the head's total), added by halves; then the last T flows
+// one at a time. V = 0: left to right.
 __device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
                             int l, int V, unsigned long long order,
-                            int chains, int W) {
+                            int chains, int W, int T) {
   if (V == 0) {
     float acc = term(inc, ld, rf, 0, l);
     for (int f = 1; f < F; ++f) acc = __fadd_rn(acc, term(inc, ld, rf, f, l));
@@ -93,14 +94,17 @@ __device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
   for (int h = 4; h >= 1; h >>= 1)
     for (int j = 0; j < h; ++j) lane[j] = __fadd_rn(lane[j], lane[j + h]);
   // the tail: lane[0] holds the head's total
+  const int E = F - T;
   for (int k = 1; k < W; ++k) lane[k] = term(inc, ld, rf, V + k, l);
-  if (V < F) lane[0] = __fadd_rn(lane[0], term(inc, ld, rf, V, l));
-  for (int f = V + W; f < F; ++f) {
+  if (V < E) lane[0] = __fadd_rn(lane[0], term(inc, ld, rf, V, l));
+  for (int f = V + W; f < E; ++f) {
     const int k = (f - V) % W;
     lane[k] = __fadd_rn(lane[k], term(inc, ld, rf, f, l));
   }
   for (int h = W / 2; h >= 1; h >>= 1)
     for (int j = 0; j < h; ++j) lane[j] = __fadd_rn(lane[j], lane[j + h]);
+  for (int f = E; f < F; ++f)
+    lane[0] = __fadd_rn(lane[0], term(inc, ld, rf, f, l));
   return lane[0];
 }
 
@@ -108,7 +112,7 @@ __global__ void __launch_bounds__(THREADS)
 maxmin_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
               const uint8_t* __restrict__ active, float* __restrict__ out,
               int F, int L, int V, unsigned long long order, int chains,
-              int W) {
+              int W, int T) {
   extern __shared__ float smem[];
   const int ld = row_stride(L);
   float* s_inc = smem;
@@ -148,7 +152,7 @@ maxmin_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
         n_unf = __fadd_rn(n_unf, __fmul_rn(s_inc[f * ld + l], unf));
       }
       const float used =
-          frozen_sum(s_inc, ld, s_rf, F, l, V, order, chains, W);
+          frozen_sum(s_inc, ld, s_rf, F, l, V, order, chains, W, T);
       float resid = __fsub_rn(s_bw[l], used);
       resid = resid < 0.f ? 0.f : resid;
       float fair = n_unf > 0.f
@@ -206,17 +210,17 @@ int maxmin_max_smem() { return MAX_SMEM; }
 int maxmin_max_order_blocks() { return MAX_ORDER_BLOCKS; }
 
 // inc (B, F, L) f32, bw (B, L) f32, active (B, F) bool (one byte) -> out
-// (B, F) f32. (n_head, order, chains, tail_lanes): the flow-sum order of
-// kernels/ref.py::FlowOrder, n_head a multiple of 8 up to 8 *
+// (B, F) f32. (n_head, order, chains, tail_lanes, trailing): the flow-sum
+// order of kernels/ref.py::FlowOrder, n_head a multiple of 8 up to 8 *
 // MAX_ORDER_BLOCKS (0: left to right), order's 4-bit field k the block
 // summed k-th.
 int launch_maxmin_rates(const float* inc, const float* bw,
                         const uint8_t* active, float* out, int n_lanes,
                         int n_flows, int n_links, int n_head,
                         unsigned long long order, int chains, int tail_lanes,
-                        void* stream) {
+                        int trailing, void* stream) {
   const size_t smem = smem_bytes(n_flows, n_links);
-  const int tail = n_flows - n_head;
+  const int tail = n_flows - n_head - trailing;
   if (n_lanes < 1 || n_flows < 1 || n_links < 1 || smem > MAX_SMEM ||
       n_head < 0 || n_head % 8 != 0 || tail < 0 ||
       n_head / 8 > MAX_ORDER_BLOCKS || chains < 1 ||
@@ -225,7 +229,7 @@ int launch_maxmin_rates(const float* inc, const float* bw,
        tail_lanes != 8) ||
       (tail_lanes > 1 &&
        (tail < tail_lanes || tail % tail_lanes != 0 || n_head == 0)) ||
-      (n_head == 0 && chains != 1))
+      (n_head == 0 && (chains != 1 || trailing != 0)) || trailing < 0)
     return (int)cudaErrorInvalidValue;
   static size_t configured = 48 * 1024;
   if (smem > configured) {
@@ -237,7 +241,7 @@ int launch_maxmin_rates(const float* inc, const float* bw,
   }
   maxmin_kernel<<<n_lanes, THREADS, smem, (cudaStream_t)stream>>>(
       inc, bw, active, out, n_flows, n_links, n_head, order, chains,
-      tail_lanes);
+      tail_lanes, trailing);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,10 @@
 // and replaces the TPU kernels' vector-unit workarounds (reshape-and-swap
 // exchanges, chunked one-hot compares and gathers, the O(n^2) predecessor
 // count) with warp ballots, popc, block-wide scans and direct gathers.
+// select_events, which needs only the first m of each agent's order, selects
+// them by a radix pass per key byte and sorts only the candidates (at most
+// the power of two >= 2m) instead of the whole pool; sort_events and a large
+// m keep the full bitonic sort, as fused_select does.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError(), so a refused launch is reported to the
@@ -34,6 +38,7 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_WARPS = 32;   // 1024 threads
 constexpr int MAX_KEYS = 64;    // group: n_kinds + 1 <= 33; route: A + 1
 constexpr int32_t I32_MAX = 0x7fffffff;
+constexpr int MAX_SORT_SLOTS = 16384;   // 12 B a slot in one block
 
 __device__ __forceinline__ bool lex_less(int32_t t1, int32_t s1, int32_t i1,
                                          int32_t t2, int32_t s2, int32_t i2) {
@@ -81,11 +86,12 @@ __device__ void sort_slots(const int32_t* __restrict__ time_key,
   }
 }
 
-// The first m indices of the sort are written out.
-__global__ void select_events_kernel(const int32_t* __restrict__ time_key,
-                                     const int32_t* __restrict__ seq,
-                                     int32_t* __restrict__ out,
-                                     int cap, int n_pad, int m) {
+// sort_events (and select_events with 2m > min(n_pad, RADIX_CAND)): the
+// whole bitonic sort, the first m indices written out.
+__global__ void sort_events_kernel(const int32_t* __restrict__ time_key,
+                                   const int32_t* __restrict__ seq,
+                                   int32_t* __restrict__ out, int cap,
+                                   int n_pad, int m) {
   extern __shared__ int32_t smem[];
   int32_t* ix = smem + 2 * n_pad;
   const int a = blockIdx.x;
@@ -93,6 +99,204 @@ __global__ void select_events_kernel(const int32_t* __restrict__ time_key,
              smem, smem + n_pad, ix);
   out += (size_t)a * m;
   for (int i = threadIdx.x; i < m; i += blockDim.x) out[i] = ix[i];
+}
+
+// select_events with 2m <= min(n_pad, RADIX_CAND): a radix selection, one
+// CTA of RADIX_THREADS per agent, thread t holding slots t * IPT .. t * IPT +
+// IPT - 1 (slot order is thread order, then item order).
+//   1. key = (time_key ^ 2^31) << 32 | (seq ^ 2^31): unsigned order is the
+//      signed (time, seq) order (seq wraps negative in the reference).
+//   2. Most significant byte first, over the keys that still match the
+//      prefix: a shared histogram of the next byte (lanes of one bin added
+//      by __match_any_sync, one atomic each), one warp's scan finds the bin
+//      of the k-th key; `below` counts the keys under the prefix, `eq` those
+//      in it. Stop once below + eq <= bound (the least power of two >= 2m)
+//      or after the last byte (the boundary key itself).
+//   3. Compact the candidates by one block scan of (below, equal) counts in
+//      slot order: every key under the prefix, then the keys in it: all of
+//      them when they fit the bound, else (last byte, so all equal to the
+//      boundary key) the first k in slot order, which is what breaks ties by
+//      slot index.
+//   4. Bitonic sort of the candidates (key, slot), one a thread, exchanges
+//      of distance < 32 by warp shuffles and the others through shared
+//      memory; the first m slots are written out.
+constexpr int RADIX_THREADS = 1024;
+constexpr int RADIX_CAND = 1024;   // candidates, one a thread
+constexpr uint64_t KEY_MAX = ~0ull;
+
+struct RadixState {
+  uint64_t prefix;
+  int shift, k, below, eq;
+};
+
+__device__ __forceinline__ uint64_t order_key(int32_t t, int32_t s) {
+  return ((uint64_t)((uint32_t)t ^ 0x80000000u) << 32) |
+         (uint64_t)((uint32_t)s ^ 0x80000000u);
+}
+
+// key >> shift, for shift in [0, 64]
+__device__ __forceinline__ uint64_t key_top(uint64_t key, int shift) {
+  return shift >= 64 ? 0ull : key >> shift;
+}
+
+// Block-wide exclusive scan of v (thread order); every thread calls it.
+__device__ int block_excl_scan(int v, int* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    int t = lane < n_warps ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, t, off);
+      if (lane >= off) t += y;
+    }
+    if (lane < n_warps) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  return incl - v + (warp > 0 ? warp_tot[warp - 1] : 0);
+}
+
+template <int IPT>
+__global__ void __launch_bounds__(RADIX_THREADS)
+select_events_kernel(const int32_t* __restrict__ time_key,
+                     const int32_t* __restrict__ seq,
+                     int32_t* __restrict__ out, int cap, int m, int bound) {
+  __shared__ int hist[256];
+  __shared__ int warp_tot[MAX_WARPS];
+  __shared__ RadixState st;
+  __shared__ uint64_t sk[2][RADIX_CAND];
+  __shared__ int32_t si[2][RADIX_CAND];
+  const int a = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = tid * IPT;
+  time_key += (size_t)a * cap;
+  seq += (size_t)a * cap;
+  out += (size_t)a * m;
+
+  // 1. keys
+  uint64_t key[IPT];
+#pragma unroll
+  for (int i = 0; i < IPT; ++i)
+    key[i] = base + i < cap ? order_key(time_key[base + i], seq[base + i])
+                            : KEY_MAX;
+
+  // 2. digit passes; the state is block-uniform (read after a barrier)
+  uint64_t prefix = 0;
+  int shift = 64, k = m, below = 0, eq = cap;
+  while (shift > 0 && below + eq > bound) {
+    for (int b = tid; b < 256; b += blockDim.x) hist[b] = 0;
+    __syncthreads();
+    const int next = shift - 8;
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+      const bool in = base + i < cap && key_top(key[i], shift) == prefix;
+      const unsigned act = __ballot_sync(FULL_MASK, in);
+      if (in) {
+        const unsigned d = (unsigned)(key[i] >> next) & 255u;
+        const unsigned peers = __match_any_sync(act, d);
+        if (lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[8 * lane + j];
+        sum += c[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, incl, off);
+        if (lane >= off) incl += y;
+      }
+      int excl = incl - sum;
+      if (excl < k && k <= incl) {   // one lane: its bins hold the k-th key
+        int j = 0;
+        while (excl + c[j] < k) excl += c[j++];
+        st = RadixState{(prefix << 8) | (uint64_t)(8 * lane + j), next,
+                        k - excl, below + excl, c[j]};
+      }
+    }
+    __syncthreads();
+    prefix = st.prefix;
+    shift = st.shift;
+    k = st.k;
+    below = st.below;
+    eq = st.eq;
+  }
+
+  // 3. stable compaction: under the prefix to [0, below), in it after
+  const int n_eq = below + eq <= bound ? eq : k;
+  const int n_cand = below + n_eq;
+  int lt_n = 0, eq_n = 0;
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    if (base + i < cap) {
+      const uint64_t t = key_top(key[i], shift);
+      lt_n += t < prefix;
+      eq_n += t == prefix;
+    }
+  }
+  const int pos = block_excl_scan(lt_n | (eq_n << 16), warp_tot);
+  int lt_pos = pos & 0xffff, eq_pos = pos >> 16;
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    if (base + i < cap) {
+      const uint64_t t = key_top(key[i], shift);
+      int p = -1;
+      if (t < prefix)
+        p = lt_pos++;
+      else if (t == prefix && eq_pos++ < n_eq)
+        p = below + eq_pos - 1;
+      if (p >= 0) {
+        sk[0][p] = key[i];
+        si[0][p] = base + i;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. bitonic sort of the n_cand candidates, padded to a power of two
+  uint64_t kv = tid < n_cand ? sk[0][tid] : KEY_MAX;
+  int32_t iv = tid < n_cand ? si[0][tid] : I32_MAX;
+  int n = 1;
+  while (n < n_cand) n <<= 1;
+  int buf = 1;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      uint64_t pk;
+      int32_t pi;
+      if (j >= 32) {
+        sk[buf][tid] = kv;
+        si[buf][tid] = iv;
+        __syncthreads();
+        pk = sk[buf][tid ^ j];
+        pi = si[buf][tid ^ j];
+        buf ^= 1;
+      } else {
+        pk = __shfl_xor_sync(FULL_MASK, kv, j);
+        pi = __shfl_xor_sync(FULL_MASK, iv, j);
+      }
+      const bool p_less = pk < kv || (pk == kv && pi < iv);
+      const bool keep_min = ((tid & j) == 0) == ((tid & size) == 0);
+      if (p_less == keep_min) {
+        kv = pk;
+        iv = pi;
+      }
+    }
+  }
+  if (tid < m) out[tid] = iv;
 }
 
 // ------------------------------------------------- stable per-key ranks
@@ -237,8 +441,10 @@ __device__ __forceinline__ int ring_pos(int32_t a, int32_t b, int cap) {
   return r < 0 ? r + cap : r;
 }
 
-// Exclusive prefix count of the 0/1 mask.
-__global__ void trace_rank_kernel(const int32_t* __restrict__ mask,
+// Exclusive prefix count of the mask (int32, or one byte a row: the
+// engine's bool mask as it comes, with no int32 copy).
+template <typename M>
+__global__ void trace_rank_kernel(const M* __restrict__ mask,
                                   int32_t* __restrict__ out, int n) {
   __shared__ int warp_tot[MAX_WARPS];
   __shared__ int carry;
@@ -418,18 +624,50 @@ int threads_for(int n) {
 extern "C" {
 
 // out: (A, m) the first m indices of each agent's (time, seq) sort over its
-// cap slots. n_pad is the power of two >= cap; shared memory is 12 * n_pad B.
+// cap slots; n_pad is the power of two >= cap. 2m <= min(n_pad, RADIX_CAND)
+// (cap <= 16 RADIX_THREADS) runs the radix selection (static shared memory),
+// a larger m the bitonic sort (12 * n_pad B of dynamic shared memory, its
+// limit raised once per process).
 int launch_select_events(const int32_t* time_key, const int32_t* seq,
                          int32_t* out, int n_agents, int cap, int n_pad,
                          int m, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_agents < 1 || cap < 1 || n_pad < cap || m < 1 || m > cap)
+    return (int)cudaErrorInvalidValue;
+  if (2 * m <= n_pad && 2 * m <= RADIX_CAND) {
+    int bound = 1;
+    while (bound < 2 * m) bound <<= 1;
+    const int ipt = (cap + RADIX_THREADS - 1) / RADIX_THREADS;
+    if (ipt <= 1)
+      select_events_kernel<1><<<n_agents, RADIX_THREADS, 0, s>>>(
+          time_key, seq, out, cap, m, bound);
+    else if (ipt <= 2)
+      select_events_kernel<2><<<n_agents, RADIX_THREADS, 0, s>>>(
+          time_key, seq, out, cap, m, bound);
+    else if (ipt <= 4)
+      select_events_kernel<4><<<n_agents, RADIX_THREADS, 0, s>>>(
+          time_key, seq, out, cap, m, bound);
+    else if (ipt <= 8)
+      select_events_kernel<8><<<n_agents, RADIX_THREADS, 0, s>>>(
+          time_key, seq, out, cap, m, bound);
+    else if (ipt <= 16)
+      select_events_kernel<16><<<n_agents, RADIX_THREADS, 0, s>>>(
+          time_key, seq, out, cap, m, bound);
+    else
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sort_events_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        3 * MAX_SORT_SLOTS * (int)sizeof(int32_t));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   const size_t smem = (size_t)3 * n_pad * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      select_events_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  select_events_kernel<<<n_agents, threads_for(n_pad / 2), smem,
-                         (cudaStream_t)stream>>>(time_key, seq, out, cap,
-                                                 n_pad, m);
+  sort_events_kernel<<<n_agents, threads_for(n_pad / 2), smem, s>>>(
+      time_key, seq, out, cap, n_pad, m);
   return (int)cudaGetLastError();
 }
 
@@ -441,10 +679,18 @@ int launch_group_by_kind(const int32_t* kind, const int32_t* active,
   return (int)cudaGetLastError();
 }
 
-int launch_trace_rank(const int32_t* mask, int32_t* out, int n_agents, int n,
-                      void* stream) {
-  trace_rank_kernel<<<n_agents, threads_for(n), 0, (cudaStream_t)stream>>>(
-      mask, out, n);
+// mask_bytes: 4 an int32 mask, 1 a bool or uint8 one.
+int launch_trace_rank(const void* mask, int mask_bytes, int32_t* out,
+                      int n_agents, int n, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mask_bytes == 1)
+    trace_rank_kernel<uint8_t><<<n_agents, threads_for(n), 0, s>>>(
+        static_cast<const uint8_t*>(mask), out, n);
+  else if (mask_bytes == 4)
+    trace_rank_kernel<int32_t><<<n_agents, threads_for(n), 0, s>>>(
+        static_cast<const int32_t*>(mask), out, n);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

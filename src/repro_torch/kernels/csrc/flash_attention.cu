@@ -11,8 +11,14 @@
 // corr = exp(m - m_new), l = l * corr + sum(p), acc = acc * corr + p v,
 // out = acc / max(l, 1e-30). Keys at or beyond Skv score -inf (p = 0 exactly,
 // whatever the running max), so any length works; query rows beyond Sq are
-// computed and not stored. Causal calls need Sq == Skv, so every query row
-// has a valid key (itself).
+// computed and not stored. The causal mask has no offset, as the
+// reference's: query row q attends keys 0 .. min(q, Skv - 1), and with a
+// window only those after q - window, so Sq and Skv may differ. A row
+// q >= Skv + window - 1 then has no key in its band: every score is -1e30,
+// and the reference's softmax makes it the mean of all Skv values. A block
+// (or warpgroup) holding such a row visits every key, where p = exp(-1e30 -
+// (-1e30)) = 1 gives that mean, and its other rows lose the extra tiles to
+// corr = 0 (see below).
 //
 // Two kernels, picked by dtype in launch_flash_attention (0 -> FFMA, 1 ->
 // wgmma). This is an explicit dispatch, not a fallback: neither kernel gives
@@ -80,6 +86,19 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+// The keys [*lo, *hi) that query rows q_lo .. q_end - 1 (q_end <= Sq) may
+// attend: a causal row q keys 0 .. q, with a window those after q - window,
+// all below Skv; every key when a row has none in its band (its scores are
+// all -1e30, and the softmax spreads over every key, as the reference's).
+__device__ __forceinline__ void band(int causal, int window, int q_lo,
+                                     int q_end, int Skv, int* lo, int* hi) {
+  *lo = 0;
+  *hi = Skv;
+  if (!causal || (window > 0 && q_end - 1 >= Skv + window - 1)) return;
+  *hi = min(Skv, q_end);
+  if (window > 0) *lo = max(0, q_lo - window + 1);
+}
 constexpr int MAX_SMEM = 232448;   // one block's shared memory on H100
 
 // ------------------------------------------------------------ float32 FFMA
@@ -131,11 +150,8 @@ fa_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // the keys any row of this block may attend: [k_lo, k_hi)
-  int k_lo = 0, k_hi = Skv;
-  if (causal) {
-    k_hi = min(Skv, min(q0 + BQ, Sq));
-    if (window > 0) k_lo = max(0, q0 - window + 1);
-  }
+  int k_lo, k_hi;
+  band(causal, window, q0, min(q0 + BQ, Sq), Skv, &k_lo, &k_hi);
   const int t_end = (k_hi + BK - 1) / BK;
 
   for (int t = k_lo / BK; t < t_end; ++t) {
@@ -448,11 +464,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x % BH;
   const int q0 = (n_qb - 1 - (int)blockIdx.x / BH) * BQ;   // most tiles first
   // the keys any row of this block may attend: [k_lo, k_hi)
-  int k_lo = 0, k_hi = Skv;
-  if (causal) {
-    k_hi = min(Skv, min(q0 + BQ, Sq));
-    if (window > 0) k_lo = max(0, q0 - window + 1);
-  }
+  int k_lo, k_hi;
+  band(causal, window, q0, min(q0 + BQ, Sq), Skv, &k_lo, &k_hi);
   const int t0 = k_lo / BK;
   const int n_tiles = (k_hi + BK - 1) / BK - t0;
 
@@ -500,11 +513,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t qw = q_s + wg * T::Q_BYTES;
   const bool live = q0w < Sq;
   // the keys any row of this warpgroup may attend: [lo, hi)
-  int lo = 0, hi = Skv;
-  if (causal) {
-    hi = min(q0w + 64, Sq);
-    if (window > 0) lo = max(0, q0w - window + 1);
-  }
+  int lo, hi;
+  band(causal, window, q0w, min(q0w + 64, Sq), Skv, &lo, &hi);
 
   float o[D / 2], sc[BK / 2];
 #pragma unroll
@@ -746,8 +756,7 @@ extern "C" {
 int launch_flash_attention(const void* q, const void* k, const void* v,
                            void* out, int BH, int BKV, int Sq, int Skv, int D,
                            int causal, int window, int dtype, void* stream) {
-  if (BH < 1 || BKV < 1 || BH % BKV || Sq < 1 || Skv < 1 || window < 0 ||
-      (causal && Sq != Skv))
+  if (BH < 1 || BKV < 1 || BH % BKV || Sq < 1 || Skv < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -1,14 +1,17 @@
 """Wrappers of the CUDA window front-end kernels (``csrc/event_select.cu``).
 
-Counterpart of ``repro.kernels.event_select``: ``select_events`` /
-``sort_events`` (bitonic (time, seq) sort), ``group_by_kind`` (stable
-same-kind grouping), ``trace_rank`` (exclusive prefix count),
-``route_rank`` (stable within-bucket ranks), ``ring_slots`` (free-ring
-insert slots) and ``fused_select`` (the whole window front end). Each
-wrapper checks device, dtype, shape and contiguity, allocates its outputs with
-``torch.empty``, launches on the current stream, raises if the launch was
-refused, and adds one to its entry of :data:`LAUNCHES`. They take CUDA
-tensors only; ``ops`` sends CPU tensors to the plain versions in ``ref``.
+Counterpart of ``repro.kernels.event_select``: ``select_events`` (the
+first m of the (time, seq) order by a radix selection; a bitonic sort when
+2m > min(n_pad, 1024)) / ``sort_events`` (bitonic), ``group_by_kind``
+(stable same-kind grouping), ``trace_rank`` (exclusive prefix count of an
+int32, bool or uint8 mask), ``route_rank`` (stable within-bucket ranks),
+``ring_slots`` (free-ring insert slots) and ``fused_select`` (the whole
+window front end). Each wrapper checks device, dtype, shape and contiguity,
+allocates fresh outputs with ``torch.empty``, launches on the current
+stream (its raw handle, no ``torch.cuda.Stream`` object), raises if the
+launch was refused, and adds one to its entry of :data:`LAUNCHES`. They
+take CUDA tensors only; ``ops`` sends CPU tensors to the plain versions in
+``ref``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ LAUNCHES = {"select_events": 0, "group_by_kind": 0, "trace_rank": 0,
 # 12 bytes per padded slot must fit one block's 227 KB of shared memory.
 MAX_SORT_SLOTS = 16384
 MAX_KINDS = 32
+# trace_rank's masks: bytes an entry
+MASK_BYTES = {torch.int32: 4, torch.bool: 1, torch.uint8: 1}
 
 
 def reset_launches() -> None:
@@ -34,20 +39,42 @@ def reset_launches() -> None:
 def _check(name: str, *tensors: torch.Tensor, dtype=torch.int32,
            shape=None) -> None:
     """CUDA, ``dtype``, contiguous, all of one non-empty ``shape`` (default:
-    the first tensor's, which must be (A, n))."""
-    shape = tuple(tensors[0].shape) if shape is None else tuple(shape)
+    the first tensor's, which must be (A, n)). Four reads a tensor; the
+    message is worked out only on a refusal."""
+    shape = tensors[0].shape if shape is None else torch.Size(shape)
+    for t in tensors:
+        if not (t.is_cuda and t.dtype == dtype and t.shape == shape
+                and t.is_contiguous()):
+            raise _refusal(name, tensors, dtype, shape)
+    if len(shape) < 2 or 0 in shape:
+        raise _refusal(name, tensors, dtype, shape)
+
+
+def _refusal(name: str, tensors, dtype, shape) -> ValueError:
     for t in tensors:
         if not t.is_cuda:
-            raise ValueError(f"{name}: expects CUDA tensors, got {t.device}")
+            return ValueError(f"{name}: expects CUDA tensors, got {t.device}")
         if t.dtype != dtype:
-            raise ValueError(f"{name}: expects {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape or len(shape) < 2:
-            raise ValueError(f"{name}: expects matching {shape} tensors, got "
-                             f"{[tuple(x.shape) for x in tensors]}")
+            return ValueError(f"{name}: expects {dtype}, got {t.dtype}")
+        if t.shape != shape or len(shape) < 2:
+            got = [tuple(x.shape) for x in tensors]
+            return ValueError(f"{name}: expects matching {tuple(shape)} "
+                              f"tensors, got {got}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: expects contiguous tensors")
-    if min(shape) < 1:
-        raise ValueError(f"{name}: empty input {shape}")
+            return ValueError(f"{name}: expects contiguous tensors")
+    return ValueError(f"{name}: empty input {tuple(shape)}")
+
+
+def _check_mask(mask: torch.Tensor) -> int:
+    """trace_rank's (A, n) mask: contiguous, on the card, int32, bool or
+    uint8. Returns its bytes an entry."""
+    nbytes = MASK_BYTES.get(mask.dtype)
+    if (nbytes is None or not mask.is_cuda or mask.dim() != 2
+            or not mask.is_contiguous() or 0 in mask.shape):
+        raise ValueError(f"trace_rank: expects a contiguous non-empty (A, n) "
+                         f"CUDA int32, bool or uint8 mask, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    return nbytes
 
 
 def _check_cursor(name: str, x: torch.Tensor, n_agents: int) -> None:
@@ -68,9 +95,15 @@ def _sort_pad(name: str, cap: int) -> int:
     return n_pad
 
 
-def _launch(name: str, fn, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _launch(name: str, fn, t: torch.Tensor, *args) -> None:
+    """``fn(*args, stream)`` on the current stream of ``t``'s card; raises on
+    a nonzero launch status."""
+    err = fn(*args, _stream(t))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
@@ -96,7 +129,7 @@ def select_events(time_key: torch.Tensor, seq: torch.Tensor,
         raise ValueError(f"select_events: exec_cap must be >= 1, got "
                          f"{exec_cap}")
     out = torch.empty((A, m), dtype=torch.int32, device=time_key.device)
-    _launch("select_events", _lib().launch_select_events,
+    _launch("select_events", _lib().launch_select_events, time_key,
             _ptr(time_key), _ptr(seq), _ptr(out), A, cap, n_pad, m)
     return out
 
@@ -119,19 +152,19 @@ def group_by_kind(kind: torch.Tensor, active: torch.Tensor, n_kinds: int):
     order = torch.empty_like(kind)
     rank = torch.empty_like(kind)
     counts = torch.empty((A, n_kinds), dtype=torch.int32, device=kind.device)
-    _launch("group_by_kind", _lib().launch_group_by_kind,
+    _launch("group_by_kind", _lib().launch_group_by_kind, kind,
             _ptr(kind), _ptr(active), _ptr(order), _ptr(rank), _ptr(counts),
             A, m, n_kinds)
     return order, rank, counts
 
 
 def trace_rank(mask: torch.Tensor) -> torch.Tensor:
-    """(A, n) 0/1 mask -> (A, n) exclusive prefix counts."""
-    _check("trace_rank", mask)
-    A, n = mask.shape
-    out = torch.empty_like(mask)
-    _launch("trace_rank", _lib().launch_trace_rank,
-            _ptr(mask), _ptr(out), A, n)
+    """(A, n) int32, bool or uint8 mask (nonzero counts) -> (A, n) int32
+    exclusive prefix counts. The mask is read as it comes: no int32 copy."""
+    nbytes = _check_mask(mask)
+    out = torch.empty_like(mask, dtype=torch.int32)
+    _launch("trace_rank", _lib().launch_trace_rank, mask,
+            _ptr(mask), nbytes, _ptr(out), *mask.shape)
     return out
 
 
@@ -150,8 +183,8 @@ def route_rank(dst_agent: torch.Tensor, n_buckets: int) -> torch.Tensor:
                          f"{lib.max_keys()}], got {n_buckets}")
     A, n = dst_agent.shape
     out = torch.empty_like(dst_agent)
-    _launch("route_rank", lib.launch_route_rank, _ptr(dst_agent), _ptr(out),
-            A, n, n_buckets)
+    _launch("route_rank", lib.launch_route_rank, dst_agent, _ptr(dst_agent),
+            _ptr(out), A, n, n_buckets)
     return out
 
 
@@ -167,7 +200,7 @@ def ring_slots(free_ring: torch.Tensor, head: torch.Tensor,
         raise ValueError(f"ring_slots: {A} rings but {want.shape[0]} masks")
     _check_cursor("ring_slots", head, A)
     out = torch.empty(want.shape, dtype=torch.int32, device=want.device)
-    _launch("ring_slots", _lib().launch_ring_slots, _ptr(free_ring),
+    _launch("ring_slots", _lib().launch_ring_slots, want, _ptr(free_ring),
             _ptr(head), _ptr(want), _ptr(out), A, cap, want.shape[1])
     return out
 
@@ -212,7 +245,7 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
     counts = torch.empty((A, n_kinds), dtype=torch.int32, device=dev)
     ins = (time_key, seq, safe, time, kind, src, dst, ctx, valid, table_id,
            res, payload, free_tail)
-    _launch("fused_select", _lib().launch_fused_select,
+    _launch("fused_select", _lib().launch_fused_select, time_key,
             *map(_ptr, ins), *map(_ptr, out), _ptr(counts), A, cap, n_pad, m,
             n_pay, n_kinds, int(n_res))
     return out, counts

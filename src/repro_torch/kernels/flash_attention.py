@@ -31,8 +31,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (BH, Sq, D), k and v (BKV, Skv, D), one dtype (float32 or
     bfloat16), D in :data:`HEAD_DIMS`, BH % BKV == 0 (row bh attends KV row
-    bh // (BH // BKV)); ``causal`` needs Sq == Skv, ``window`` > 0 keeps the
-    last ``window`` keys. Returns (BH, Sq, D) in q's dtype."""
+    bh // (BH // BKV)); ``causal`` lets query row q attend keys 0 .. q (no
+    offset, as the reference's mask, for any Sq and Skv), ``window`` > 0
+    keeps the last ``window`` of them. Returns (BH, Sq, D) in q's dtype."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda or x.dtype != q.dtype or x.ndim != 3 \
                 or not x.is_contiguous():
@@ -52,9 +53,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"== 0")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if causal and sq != skv:
-        raise ValueError(f"flash_attention: causal needs Sq == Skv, got "
-                         f"{sq} and {skv}")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     lib = build.library("flash_attention")

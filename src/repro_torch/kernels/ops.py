@@ -60,9 +60,13 @@ def group_by_kind(kind, active, n_kinds: int):
 
 
 def trace_rank(mask):
-    """(A, n) processed mask -> (A, n) exclusive prefix ranks."""
+    """(A, n) processed mask -> (A, n) exclusive prefix ranks. On the card
+    an int32, bool or uint8 mask (the engine's bool ``exec_safe``) goes to
+    the kernel as it is."""
     if _on_card(mask):
-        return _es.trace_rank(_i32(mask))
+        if mask.dtype not in _es.MASK_BYTES:
+            mask = mask.to(I32)
+        return _es.trace_rank(mask.contiguous())
     return _ref.trace_rank(mask)
 
 

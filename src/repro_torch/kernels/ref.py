@@ -154,13 +154,15 @@ class FlowOrder(NamedTuple):
     halves ((l, l + 4), then (l, l + 2), then (0, 1)). The flows from
     ``head`` on are summed in ``tail_lanes`` interleaved sums, lane k taking
     flows head + k, head + k + tail_lanes, ..., lane 0 starting from the
-    head's total, and those lanes are added by halves. The default is left
-    to right."""
+    head's total, and those lanes are added by halves. The last
+    ``trailing`` flows stay out of the tail lanes: they are added to that
+    total one at a time, in order. The default is left to right."""
 
     head: int = 0
     blocks: tuple = ()
     chains: int = 1
     tail_lanes: int = 1
+    trailing: int = 0
 
 
 LEFT_TO_RIGHT = FlowOrder()
@@ -171,9 +173,10 @@ LEFT_TO_RIGHT = FlowOrder()
 # order). F = 48-52, 56, 64-68, 72, 96 and 128 were probed at every L from
 # 1 to 64; F = 33-80 at L = 1-5, 8-10, 16, 32 and 64. Left to right in the
 # reference: F <= 42 at every L probed, F <= 49 from L = 2, and the gaps in
-# the table's ranges of L. Every other (F, L) probed sums in a tree of
-# another form, which the port does not reproduce and sums left to right
-# (ROADMAP.md, reference caveats).
+# the table's ranges of L. Some sum their last flows one at a time after
+# the tail lanes (``trailing``; the bridge's shapes below). Every other
+# (F, L) probed sums in a tree of another form, or was not probed at that
+# L, and the port sums it left to right (ROADMAP.md, reference caveats).
 _ORDER_48 = FlowOrder(48, (0, 2, 4, 3, 1, 5))
 _ORDER_64 = FlowOrder(64, (0, 4, 5, 1, 6, 2, 7, 3))
 _ORDER_96 = FlowOrder(96, (0, 4, 8, 5, 1, 9, 6, 2, 10, 7, 3, 11))
@@ -203,6 +206,25 @@ _UNBATCHED_ORDER = {
     96: ((1, 1, _ORDER_96), (2, 8, _ORDER_64), (9, 64, _ORDER_96)),
     128: ((1, 1, _ORDER_128), (2, 8, _ORDER_96), (9, 64, _ORDER_128_CHAINS)),
 }
+# The workload bridge's shapes, F = 2n flows over L = n links, probed at
+# L = n for n = 29-63 (n = 20-28, 30, 32-34, 36, 38, 40, 45, 48 and 64 sum
+# as tabled above or left to right). Head and block order by F, the tail
+# lanes and trailing flows by F - head: (F, head order, lanes, trailing).
+for _F, _head, _W, _T in (
+        (58, _ORDER_48, 4, 2), (62, _ORDER_48, 4, 2), (70, _ORDER_64, 2, 2),
+        (74, _ORDER_64, 4, 2), (78, _ORDER_64, 4, 2), (82, _ORDER_64, 8, 2),
+        (84, _ORDER_64, 4, 0), (86, _ORDER_64, 4, 2), (88, _ORDER_64, 8, 0),
+        (92, _ORDER_64, 8, 4), (94, _ORDER_64, 8, 6), (98, _ORDER_96, 1, 0),
+        (100, _ORDER_96, 2, 0), (102, _ORDER_96, 2, 2),
+        (104, _ORDER_96, 4, 0), (106, _ORDER_96, 4, 2),
+        (108, _ORDER_96, 4, 0), (110, _ORDER_96, 4, 2),
+        (112, _ORDER_96, 8, 0), (114, _ORDER_96, 8, 2),
+        (116, _ORDER_96, 4, 0), (118, _ORDER_96, 4, 2),
+        (120, _ORDER_96, 8, 0), (122, _ORDER_96, 8, 2),
+        (124, _ORDER_96, 8, 4), (126, _ORDER_96, 8, 6)):
+    _UNBATCHED_ORDER[_F] = ((_F // 2, _F // 2,
+                             _head._replace(tail_lanes=_W, trailing=_T)),)
+del _F, _head, _W, _T
 
 
 def flow_order(n_flows: int, n_links: int, n_lanes: int) -> FlowOrder:
@@ -226,7 +248,7 @@ def _halves(lanes: list):
 def _sum_flows(contrib: torch.Tensor) -> torch.Tensor:
     """(F, B, L) -> (B, L): the sum over flows in :func:`flow_order`."""
     F, B, L = contrib.shape[:3]
-    V, blocks, chains, W = flow_order(F, L, B)
+    V, blocks, chains, W, trailing = flow_order(F, L, B)
     if not V:
         acc = contrib[0]
         for f in range(1, F):
@@ -243,12 +265,16 @@ def _sum_flows(contrib: torch.Tensor) -> torch.Tensor:
     while lanes.shape[0] > 1:
         h = lanes.shape[0] // 2
         lanes = lanes[:h] + lanes[h:]
-    tail = [lanes[0]] + [contrib[f] for f in range(V + 1, min(V + W, F))]
-    if V < F:
+    E = F - trailing
+    tail = [lanes[0]] + [contrib[f] for f in range(V + 1, min(V + W, E))]
+    if V < E:
         tail[0] = tail[0] + contrib[V]
-    for f in range(V + W, F):
+    for f in range(V + W, E):
         tail[(f - V) % W] = tail[(f - V) % W] + contrib[f]
-    return _halves(tail)
+    acc = _halves(tail)
+    for f in range(E, F):
+        acc = acc + contrib[f]
+    return acc
 
 
 def _fill_rounds(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor):

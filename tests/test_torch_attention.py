@@ -4,9 +4,9 @@ against the JAX Pallas ``flash_attention`` in interpret mode and
 ``repro.kernels.ref.attention_ref``, at tests/test_kernels.py's tolerances
 (2e-6 in float32, 2e-2 in bfloat16). Inputs come from a numpy seed and are
 cast to the working dtype by both frameworks (the same round-to-nearest).
-Four cases cover GQA (groups 5, 3 and 2), windows, lengths that are not a
-multiple of the kernels' 64- and 128-row blocks, bfloat16 and a non-causal
-call; the cases with a window also run the model's layout, (b, s, heads,
+Six cases cover GQA (groups 5, 3 and 2), windows, lengths that are not a
+multiple of the kernels' 64- and 128-row blocks, bfloat16, a non-causal
+call and causal calls with fewer and with more queries than keys; the cases with a window also run the model's layout, (b, s, heads,
 head_dim) flattened to head-major rows, against the JAX model's
 ``_chunked_attention``.
 """
@@ -31,6 +31,11 @@ from repro_torch.models import layers as L  # noqa: E402
     (4, 2, 32, 64, 64, False, 0, "float32", 32),      # cross-attention shape
     # the card's bf16 edge: a window that is no multiple of any tile, group 5
     (10, 2, 200, 200, 64, True, 100, "bfloat16", 40),
+    # causal with Sq != Skv (the mask has no offset): fewer queries than
+    # keys, with a window; more queries than keys, with a window, so rows
+    # 63 and on have no key in their band and take the mean of every value
+    (6, 2, 48, 112, 32, True, 24, "float32", 16),
+    (4, 2, 96, 48, 16, True, 16, "float32", 16),
 ])
 def test_plain_attention_matches_pallas_and_ref(bh, bkv, sq, skv, d, causal,
                                                 window, dtype, block):
@@ -60,7 +65,7 @@ def test_plain_attention_matches_pallas_and_ref(bh, bkv, sq, skv, d, causal,
                       .transpose(0, 2, 1, 3) for x in (q, k, v))
         want = _chunked_attention(
             jnp.asarray(q4), jnp.asarray(k4), jnp.asarray(v4), causal=True,
-            window=window, q_offset=0, kv_len_valid=jnp.int32(sq),
+            window=window, q_offset=0, kv_len_valid=jnp.int32(skv),
             chunk_q=16, chunk_kv=16)
         t4 = [torch.from_numpy(np.ascontiguousarray(x)) for x in (q4, k4, v4)]
         got = ops.flash_attention(*map(L._heads_first, t4), causal=True,

@@ -408,6 +408,16 @@ def test_maxmin_rates_one_lane_caveat_is_bounded():
     assert differ > 0 and worst <= 8
 
 
+@pytest.mark.parametrize("n", [29, 31, 35, 37, 39, 41, 42, 43, 44, 46, 47,
+                               49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59,
+                               60, 61, 62, 63])
+def test_maxmin_rates_one_lane_bit_equal_at_bridge_shapes(n):
+    """The workload bridge's shapes, 2n flows over n links, where the
+    reference's one-lane sum has a tail of interleaved lanes and trailing
+    flows (kernels/ref.py, ``_UNBATCHED_ORDER``): bit for bit."""
+    assert _one_lane_ulps(2 * n, n, 12, n) == (0, 0)
+
+
 def test_progress_and_completion_bit_equal():
     """``rem - rate * dt`` is one fused multiply-add in the reference."""
     rng = np.random.default_rng(9)
