@@ -8,15 +8,18 @@ checkout of the repository). Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile each ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; ptxas' registers and spills
+   of each kernel, and the GLA tensor-core kernel's shared memory and CTAs
+   per SM;
 3. kernels: each of the six window front-end kernels against its plain
    PyTorch version on the card, byte for byte, at the main paths' shapes
    (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384, on
    the adversarial pools of tests/test_torch_select.py and m from 1 to
    cap; group over 256 rows with 8 kinds; trace over 256, int32, bool and
    uint8 masks; route over 4096 rows with 9 buckets; fused_select over
-   pool_cap 4096 -> 256, also 1000 and 16384; ring_slots over a 4096 ring
-   and 4096 rows) and on edge cases; the
+   pool_cap 4096 -> 256, also 1000 and 16384, on the same adversarial pools
+   and m = 1, 512, 513 (both sides of the radix/bitonic boundary) and cap;
+   ring_slots over a 4096 ring and 4096 rows) and on edge cases; the
    max-min water-fill bit for bit at tiered_grid's shapes (2048, 8 and 1
    lanes of 32 flows over 4 links), one lane at every tabled flow-sum
    order, the 64-pod workload's (256 and 1 lanes of 128 flows over 64
@@ -33,7 +36,9 @@ checkout of the repository). Phases, each of which raises on failure:
    at the smoke configs' head dim 16, and causal with Sq != Skv (fewer
    queries than keys and more, with and without a window; the largest
    error of those against 2e-6 and 2e-2); ``rwkv6_scan`` at rwkv6-7b's
-   (4 x 64 heads of 64, S 2048, chunk 64) and ``ssd_scan`` at hymba's SSD
+   (4 x 64 heads of 64, S 2048, chunk 64; bfloat16 through the TF32
+   tensor-core kernel, float32 through the FFMA one) and ``ssd_scan`` at
+   hymba's SSD
    (4 x 25 heads, state 16, head 64), both also at S 1000 (the divisor
    rule's chunk 50); then each timed (CUDA events and device time) against the
    plain version, the bound and, for attention,
@@ -121,6 +126,8 @@ INT32_OPS_PER_S = 16.7e12
 FP32_OPS_PER_S = 67e12
 # bf16 on the tensor cores, dense (the model zoo's attention in bfloat16)
 BF16_OPS_PER_S = 989e12
+# TF32 on the tensor cores, dense (rwkv6_scan in bfloat16)
+TF32_OPS_PER_S = 495e12
 
 # The tiered Grid's source: WLCG's tier shape (wlcg.web.cern.ch, "Tier
 # centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
@@ -378,8 +385,6 @@ def phase_kernels(es, ref) -> dict:
     mk = ri(0, 2, (A, m))
     dd = ri(0, nb, (A, n_emit))
     key = torch.where(ac.bool(), kd, nk)
-    n_pad = 4096
-    stages = (n_pad.bit_length() - 1) * n_pad.bit_length() // 2
     log_m = m.bit_length() - 1
     # the stable sort of the packed (time_key << 32) | seq key is one
     # PyTorch call for select_events (both halves are non-negative, so the
@@ -411,8 +416,10 @@ def phase_kernels(es, ref) -> dict:
             # and the per-kind counts
             bytes=(A * (cap * 8 + 4 + m * (7 * 4 + 2 + 4 * n_pay))
                    + A * m * (9 * 4 + 3 + 4 * n_pay) + A * fs_nk * 4),
-            # the sort network, the pairwise conflict compares, the ranks
-            ops=A * ((n_pad // 2) * stages + m * m + m * (fs_nk + 2))),
+            # a selection (each key once, m log m to order the kept), the
+            # conflict sort of the m lanes, the ranks
+            ops=A * (cap + 2 * m * log_m + m * (fs_nk + 2)),
+            kernel="fused_select_radix_kernel"),
         "ring_slots": dict(
             fn=lambda: es.ring_slots(ring, head, want),
             plain=lambda: ref.ring_slots(ring, head, want), lib=None,
@@ -436,7 +443,7 @@ def phase_kernels(es, ref) -> dict:
     out = {}
     for name, r in rows.items():
         ms = cuda_ms(r["fn"])
-        dev_ms = device_ms(r["fn"], f"{name}_kernel")
+        dev_ms = device_ms(r["fn"], r.get("kernel", f"{name}_kernel"))
         plain_ms = cuda_ms(r["plain"])
         lib_ms = cuda_ms(r["lib"]) if r["lib"] is not None else None
         bms, by = bound(r["bytes"], r["ops"])
@@ -583,7 +590,9 @@ def fused_equal(got, want) -> int:
 
 def check_fused_select(es, ref, ri, g) -> int:
     """fused_select against its plain version: the main path's shape, other
-    caps and the edge cases."""
+    caps and the edge cases; then the adversarial time keys and seqs of
+    tests/test_torch_select.py (the other columns as ``fused_inputs`` makes
+    them) and m on both sides of the radix/bitonic boundary."""
     A = 8
     cases = [  # (cap, exec_cap, safe density, free_tail, what)
         (4096, 256, 0.6, 17, "main path"), (1000, 256, 0.6, 990, "cap 1000"),
@@ -601,6 +610,20 @@ def check_fused_select(es, ref, ri, g) -> int:
                     ref.fused_select(*cols, xcap, **kw))
         print(f"[kernels] fused_select cap={cap} exec_cap={xcap} {what}: "
               f"equal", flush=True)
+    for cap, xcap, mode in [
+            (4096, 256, "rand"), (4096, 256, "unsafe"), (4096, 256, "ties"),
+            (4096, 256, "one_time"), (4096, 256, "neg_seq"),
+            (4096, 256, "full_range"), (4096, 256, "few_keys"),
+            (4096, 256, "boundary"), (4096, 1, "rand"), (4096, 1, "ties"),
+            (4096, 512, "rand"), (4096, 512, "boundary"),
+            (4096, 513, "rand"), (4096, 513, "few_keys"),
+            (16384, 256, "neg_seq"), (1000, 256, "ties")]:
+        cols, kw = fused_inputs(ri, g, A, cap, 0.6, 11)
+        cols = select_pool(ri, mode, A, cap, xcap) + cols[2:]
+        fused_equal(es.fused_select(*cols, xcap, **kw),
+                    ref.fused_select(*cols, xcap, **kw))
+        print(f"[kernels] fused_select cap={cap} exec_cap={xcap} pool "
+              f"{mode}: equal", flush=True)
     return 0
 
 
@@ -1009,14 +1032,21 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(sq))
 
 
-def gla_flops(s: int, c: int, dk: int, dv: int, mode: str) -> int:
+def gla_flops(s: int, c: int, dk: int, dv: int, mode: str,
+              state_products: int = 1) -> int:
     """Float operations of one head's chunked scan (products and sums of
     the intra-chunk matrix, its product with V, the state read and the
-    state update), counting only the triangle the mode needs."""
+    state update, the last ``state_products`` times: the tensor-core
+    kernel splits it into two TF32 products), counting only the triangle
+    the mode needs."""
     tri = c * (c - 1) // 2 if mode == "k" else c * (c + 1) // 2
     per_chunk = 2 * (tri * dk + c * dk * dv + c * (c + 1) // 2 * dv
-                     + c * dk * dv)
+                     + state_products * c * dk * dv)
     return per_chunk * (s // c)
+
+
+# the kernel each (mode, dtype) runs: bf16 mode k on the tensor cores
+GLA_KERNEL = {("k", "bfloat16"): "rwkv6_tc_kernel"}
 
 
 def phase_zoo_kernels() -> dict:
@@ -1100,7 +1130,8 @@ def phase_zoo_kernels() -> dict:
             u = rn(bh, dk, scale=0.3) if mode == "k" else None
             out, st = gla.gla_scan(q, k, v, w, u, mode=mode, chunk=chunk)
             want, wst = ref.gla_scan(q, k, v, w, u, mode=mode, chunk=chunk)
-            label = f"{name} BH={bh} S={S} dk={dk} dv={dv} chunk={chunk} {dt}"
+            label = (f"{name} BH={bh} S={S} dk={dk} dv={dv} chunk={chunk} "
+                     f"{dt} ({GLA_KERNEL.get((mode, dt), 'gla_kernel')})")
             out_tol = GLA_TOL if dt == "float32" else ZOO_TOL[dt]
             e = zoo_close(label, out, want, out_tol)
             es = zoo_close(label + " state", st, wst, GLA_TOL)
@@ -1134,6 +1165,8 @@ def phase_zoo_kernels() -> dict:
     for name, (q, k, v, w, u, mode, chunk) in main_gla.items():
         bh, S, dk = q.shape
         dv = v.shape[-1]
+        kernel = GLA_KERNEL.get((mode, "bfloat16"), "gla_kernel")
+        tc = kernel == "rwkv6_tc_kernel"
         rows[name] = dict(
             fn=lambda a=(q, k, v, w, u, mode, chunk): gla.gla_scan(
                 *a[:5], mode=a[5], chunk=a[6]),
@@ -1145,14 +1178,15 @@ def phase_zoo_kernels() -> dict:
             bytes=(2 * (q.numel() + k.numel() + v.numel() + bh * S * dv)
                    + 4 * (w.numel() + (u.numel() if u is not None else 0))
                    + 4 * bh * dk * dv),
-            ops=bh * gla_flops(S, chunk, dk, dv, mode), rate=FP32_OPS_PER_S,
-            kernel="gla_kernel")
+            ops=bh * gla_flops(S, chunk, dk, dv, mode, 2 if tc else 1),
+            rate=TF32_OPS_PER_S if tc else FP32_OPS_PER_S, kernel=kernel)
     for name, r in rows.items():
         ms = cuda_ms(r["fn"], iters=50)
         dev_ms = device_ms(r["fn"], r["kernel"])
         plain_ms = cuda_ms(r["plain"], iters=20)
         lib_ms = cuda_ms(r["lib"], iters=50) if r["lib"] is not None else None
         bms, by = bound(r["bytes"], r["ops"], r["rate"])
+        tflops, peak = r["ops"] / ms / 1e9, r["rate"] / 1e12
         out[name] = dict(max_abs_err=err[name], ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                          bound_by=by)
@@ -1160,8 +1194,10 @@ def phase_zoo_kernels() -> dict:
               f"{dev_ms:.6f} ms), plain {plain_ms:.6f} ms, library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, bound "
               f"{bms:.6f} ms ({by}: {r['bytes']} B, {r['ops']} ops); "
-              f"{r['ops'] / ms / 1e9:.1f} TFLOP/s, {bms / ms:.4f} of the "
-              f"bound", flush=True)
+              f"{tflops:.1f} TFLOP/s ({tflops / peak:.4f} of {peak:.0f} "
+              f"TFLOP/s), {bms / ms:.4f} of the bound; device "
+              f"{r['ops'] / dev_ms / 1e9:.1f} TFLOP/s, {bms / dev_ms:.4f} of "
+              f"the bound", flush=True)
     return out
 
 
@@ -1326,6 +1362,11 @@ def serve_full(arch: str, card: str) -> dict:
     return nums
 
 
+# the zoo kernels' device op names (attention's two, the scans')
+PORT_KERNELS = ("fa_wgmma_kernel", "fa_ffma_kernel", "gla_kernel",
+                "rwkv6_tc_kernel")
+
+
 def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
     """A second admit and three ticks under torch.profiler: the device's
     busy share of each and the device ops that take the most time."""
@@ -1358,13 +1399,17 @@ def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
               f"({card})", flush=True)
         # the six costliest device ops, then the port's kernels among the
         # rest (attention's share of the admit)
-        ours = [e for e in top[6:] if any(
-            k in e.key for k in ("fa_wgmma_kernel", "fa_ffma_kernel",
-                                 "gla_kernel"))]
-        for e in top[:6] + ours:
+        ours = [e for e in top if any(k in e.key for k in PORT_KERNELS)]
+        for e in top[:6] + [e for e in ours if e not in top[:6]]:
             print(f"[profile serve] {arch} {label}:   "
                   f"{self_device_us(e) / 1e3:.3f} ms in {e.count} calls of "
                   f"{e.key[:90]}", flush=True)
+        for e in ours:
+            print(f"[profile serve] {arch} {label}: the port's "
+                  f"{e.key[:60]}: {self_device_us(e) / 1e3:.3f} ms, "
+                  f"{self_device_us(e) / 1e3 / busy_ms:.4f} of the device "
+                  f"time, {self_device_us(e) / 1e3 / wall_ms:.4f} of the "
+                  f"wall", flush=True)
 
 
 def phase_serve(card: str) -> dict:
@@ -1423,8 +1468,12 @@ def main() -> int:
         print(f"[build] {name}: {info['seconds']:.2f} s -> {info['path']}",
               flush=True)
         print("\n".join(f"[build] {line}" for line in info["log"].splitlines()
-                        if "registers" in line or "Compiling" in line),
-              flush=True)
+                        if any(k in line for k in ("registers", "Compiling",
+                                                   "spill"))), flush=True)
+    lib = build.library("rwkv6_scan")
+    print(f"[build] rwkv6_tc_kernel: {lib.gla_tc_smem_bytes()} B of dynamic "
+          f"shared memory, {lib.gla_tc_blocks_per_sm()} CTAs per SM",
+          flush=True)
     timings = phase_kernels(es, ref)
     timings["maxmin_rates"] = phase_maxmin(torch.Generator().manual_seed(1))
     # before phase 4's profiles: after a long profiled run, a short one

@@ -47,6 +47,8 @@ _SIGNATURES = {
         "launch_gla_scan": [_P] * 7 + [_I] * 7 + [_P],
         "gla_smem_bytes": [_I] * 4,
         "gla_max_smem": [],
+        "gla_tc_smem_bytes": [],
+        "gla_tc_blocks_per_sm": [],
     },
 }
 _RESTYPES = {"maxmin_smem_bytes": ctypes.c_longlong,

@@ -17,10 +17,12 @@
 // and replaces the TPU kernels' vector-unit workarounds (reshape-and-swap
 // exchanges, chunked one-hot compares and gathers, the O(n^2) predecessor
 // count) with warp ballots, popc, block-wide scans and direct gathers.
-// select_events, which needs only the first m of each agent's order, selects
-// them by a radix pass per key byte and sorts only the candidates (at most
-// the power of two >= 2m) instead of the whole pool; sort_events and a large
-// m keep the full bitonic sort, as fused_select does.
+// select_events and fused_select, which need only the first m of each
+// agent's order, select them by one code (radix_select): a radix pass per
+// key byte, then a sort of only the candidates (at most the power of two
+// >= 2m) instead of the whole pool; sort_events and a large m keep the full
+// bitonic sort (sort_slots). fused_select finds its conflicts by sorting
+// the window's conflict keys with the same networks, not by a pairwise scan.
 //
 // Every entry point is a plain C function that launches on the given stream
 // and returns cudaGetLastError(), so a refused launch is reported to the
@@ -31,6 +33,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,6 +50,30 @@ __device__ __forceinline__ bool lex_less(int32_t t1, int32_t s1, int32_t i1,
 }
 
 // ---------------------------------------------------------------- select
+// Bitonic network over n (a power of two) (t, s, ix) triples in shared
+// memory, ascending by lex_less; every thread calls it, and it ends after a
+// barrier (none when n == 1). With distinct ix the order is total.
+__device__ void bitonic_smem(int32_t* t, int32_t* s, int32_t* ix, int n) {
+  const int half = n >> 1;
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= 1; j >>= 1) {
+      for (int p = threadIdx.x; p < half; p += blockDim.x) {
+        const int lo = (p / j) * 2 * j + (p % j);
+        const int hi = lo + j;
+        const bool ascend = (lo & k) == 0;
+        const bool hi_first = lex_less(t[hi], s[hi], ix[hi], t[lo], s[lo], ix[lo]);
+        if (hi_first == ascend) {
+          int32_t x;
+          x = t[lo]; t[lo] = t[hi]; t[hi] = x;
+          x = s[lo]; s[lo] = s[hi]; s[hi] = x;
+          x = ix[lo]; ix[lo] = ix[hi]; ix[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // Bitonic sort of (time_key, seq, index) in dynamic shared memory (12 B per
 // slot, padded to the next power of two with (I32_MAX, I32_MAX, i >= cap)).
 // Indices are distinct, so the order is total and equals the stable
@@ -65,25 +93,7 @@ __device__ void sort_slots(const int32_t* __restrict__ time_key,
     ix[i] = i;
   }
   __syncthreads();
-
-  const int half = n_pad >> 1;
-  for (int k = 2; k <= n_pad; k <<= 1) {
-    for (int j = k >> 1; j >= 1; j >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int lo = (p / j) * 2 * j + (p % j);
-        const int hi = lo + j;
-        const bool ascend = (lo & k) == 0;
-        const bool hi_first = lex_less(t[hi], s[hi], ix[hi], t[lo], s[lo], ix[lo]);
-        if (hi_first == ascend) {
-          int32_t x;
-          x = t[lo]; t[lo] = t[hi]; t[hi] = x;
-          x = s[lo]; s[lo] = s[hi]; s[hi] = x;
-          x = ix[lo]; ix[lo] = ix[hi]; ix[hi] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_smem(t, s, ix, n_pad);
 }
 
 // sort_events (and select_events with 2m > min(n_pad, RADIX_CAND)): the
@@ -101,9 +111,10 @@ __global__ void sort_events_kernel(const int32_t* __restrict__ time_key,
   for (int i = threadIdx.x; i < m; i += blockDim.x) out[i] = ix[i];
 }
 
-// select_events with 2m <= min(n_pad, RADIX_CAND): a radix selection, one
-// CTA of RADIX_THREADS per agent, thread t holding slots t * IPT .. t * IPT +
-// IPT - 1 (slot order is thread order, then item order).
+// The radix selection of the first m slots (2m <= min(n_pad, RADIX_CAND)),
+// shared by select_events and fused_select: one CTA of RADIX_THREADS per
+// agent, thread t holding slots t * IPT .. t * IPT + IPT - 1 (slot order is
+// thread order, then item order).
 //   1. key = (time_key ^ 2^31) << 32 | (seq ^ 2^31): unsigned order is the
 //      signed (time, seq) order (seq wraps negative in the reference).
 //   2. Most significant byte first, over the keys that still match the
@@ -119,7 +130,7 @@ __global__ void sort_events_kernel(const int32_t* __restrict__ time_key,
 //      slot index.
 //   4. Bitonic sort of the candidates (key, slot), one a thread, exchanges
 //      of distance < 32 by warp shuffles and the others through shared
-//      memory; the first m slots are written out.
+//      memory; thread t then holds the t-th slot of the order.
 constexpr int RADIX_THREADS = 1024;
 constexpr int RADIX_CAND = 1024;   // candidates, one a thread
 constexpr uint64_t KEY_MAX = ~0ull;
@@ -128,6 +139,21 @@ struct RadixState {
   uint64_t prefix;
   int shift, k, below, eq;
 };
+
+struct RadixSmem {
+  int hist[256];
+  int warp_tot[MAX_WARPS];
+  RadixState st;
+  uint64_t sk[2][RADIX_CAND];
+  int32_t si[2][RADIX_CAND];
+};
+
+// the least power of two >= 2m: the candidates the selection may keep
+int radix_bound(int m) {
+  int bound = 1;
+  while (bound < 2 * m) bound <<= 1;
+  return bound;
+}
 
 __device__ __forceinline__ uint64_t order_key(int32_t t, int32_t s) {
   return ((uint64_t)((uint32_t)t ^ 0x80000000u) << 32) |
@@ -165,113 +191,14 @@ __device__ int block_excl_scan(int v, int* warp_tot) {
   return incl - v + (warp > 0 ? warp_tot[warp - 1] : 0);
 }
 
-template <int IPT>
-__global__ void __launch_bounds__(RADIX_THREADS)
-select_events_kernel(const int32_t* __restrict__ time_key,
-                     const int32_t* __restrict__ seq,
-                     int32_t* __restrict__ out, int cap, int m, int bound) {
-  __shared__ int hist[256];
-  __shared__ int warp_tot[MAX_WARPS];
-  __shared__ RadixState st;
-  __shared__ uint64_t sk[2][RADIX_CAND];
-  __shared__ int32_t si[2][RADIX_CAND];
-  const int a = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int base = tid * IPT;
-  time_key += (size_t)a * cap;
-  seq += (size_t)a * cap;
-  out += (size_t)a * m;
-
-  // 1. keys
-  uint64_t key[IPT];
-#pragma unroll
-  for (int i = 0; i < IPT; ++i)
-    key[i] = base + i < cap ? order_key(time_key[base + i], seq[base + i])
-                            : KEY_MAX;
-
-  // 2. digit passes; the state is block-uniform (read after a barrier)
-  uint64_t prefix = 0;
-  int shift = 64, k = m, below = 0, eq = cap;
-  while (shift > 0 && below + eq > bound) {
-    for (int b = tid; b < 256; b += blockDim.x) hist[b] = 0;
-    __syncthreads();
-    const int next = shift - 8;
-#pragma unroll
-    for (int i = 0; i < IPT; ++i) {
-      const bool in = base + i < cap && key_top(key[i], shift) == prefix;
-      const unsigned act = __ballot_sync(FULL_MASK, in);
-      if (in) {
-        const unsigned d = (unsigned)(key[i] >> next) & 255u;
-        const unsigned peers = __match_any_sync(act, d);
-        if (lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int c[8], sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        c[j] = hist[8 * lane + j];
-        sum += c[j];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(FULL_MASK, incl, off);
-        if (lane >= off) incl += y;
-      }
-      int excl = incl - sum;
-      if (excl < k && k <= incl) {   // one lane: its bins hold the k-th key
-        int j = 0;
-        while (excl + c[j] < k) excl += c[j++];
-        st = RadixState{(prefix << 8) | (uint64_t)(8 * lane + j), next,
-                        k - excl, below + excl, c[j]};
-      }
-    }
-    __syncthreads();
-    prefix = st.prefix;
-    shift = st.shift;
-    k = st.k;
-    below = st.below;
-    eq = st.eq;
-  }
-
-  // 3. stable compaction: under the prefix to [0, below), in it after
-  const int n_eq = below + eq <= bound ? eq : k;
-  const int n_cand = below + n_eq;
-  int lt_n = 0, eq_n = 0;
-#pragma unroll
-  for (int i = 0; i < IPT; ++i) {
-    if (base + i < cap) {
-      const uint64_t t = key_top(key[i], shift);
-      lt_n += t < prefix;
-      eq_n += t == prefix;
-    }
-  }
-  const int pos = block_excl_scan(lt_n | (eq_n << 16), warp_tot);
-  int lt_pos = pos & 0xffff, eq_pos = pos >> 16;
-#pragma unroll
-  for (int i = 0; i < IPT; ++i) {
-    if (base + i < cap) {
-      const uint64_t t = key_top(key[i], shift);
-      int p = -1;
-      if (t < prefix)
-        p = lt_pos++;
-      else if (t == prefix && eq_pos++ < n_eq)
-        p = below + eq_pos - 1;
-      if (p >= 0) {
-        sk[0][p] = key[i];
-        si[0][p] = base + i;
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. bitonic sort of the n_cand candidates, padded to a power of two
-  uint64_t kv = tid < n_cand ? sk[0][tid] : KEY_MAX;
-  int32_t iv = tid < n_cand ? si[0][tid] : I32_MAX;
-  int n = 1;
-  while (n < n_cand) n <<= 1;
+// One-a-thread bitonic network over the (key, index) pairs of the block's
+// first n threads (n a power of two <= RADIX_CAND), ascending by (key,
+// index): exchanges of distance < 32 by warp shuffles, the others through
+// sk and si. Every thread of the block calls it.
+__device__ void bitonic_regs(uint64_t& kv, int32_t& iv, int n,
+                             uint64_t (*sk)[RADIX_CAND],
+                             int32_t (*si)[RADIX_CAND]) {
+  const int tid = threadIdx.x;
   int buf = 1;
   for (int size = 2; size <= n; size <<= 1) {
     for (int j = size >> 1; j > 0; j >>= 1) {
@@ -296,7 +223,144 @@ select_events_kernel(const int32_t* __restrict__ time_key,
       }
     }
   }
-  if (tid < m) out[tid] = iv;
+}
+
+// Steps 1-4 over one agent's cap slots; returns the slot of order position
+// threadIdx.x (meaningful for threadIdx.x < m). Every thread calls it.
+template <int IPT>
+__device__ int32_t radix_select(const int32_t* __restrict__ time_key,
+                                const int32_t* __restrict__ seq, int cap,
+                                int m, int bound, RadixSmem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int base = tid * IPT;
+
+  // 1. keys
+  uint64_t key[IPT];
+#pragma unroll
+  for (int i = 0; i < IPT; ++i)
+    key[i] = base + i < cap ? order_key(time_key[base + i], seq[base + i])
+                            : KEY_MAX;
+
+  // 2. digit passes; the state is block-uniform (read after a barrier)
+  uint64_t prefix = 0;
+  int shift = 64, k = m, below = 0, eq = cap;
+  while (shift > 0 && below + eq > bound) {
+    for (int b = tid; b < 256; b += blockDim.x) sm.hist[b] = 0;
+    __syncthreads();
+    const int next = shift - 8;
+#pragma unroll
+    for (int i = 0; i < IPT; ++i) {
+      const bool in = base + i < cap && key_top(key[i], shift) == prefix;
+      const unsigned act = __ballot_sync(FULL_MASK, in);
+      if (in) {
+        const unsigned d = (unsigned)(key[i] >> next) & 255u;
+        const unsigned peers = __match_any_sync(act, d);
+        if (lane == __ffs(peers) - 1) atomicAdd(&sm.hist[d], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = sm.hist[8 * lane + j];
+        sum += c[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, incl, off);
+        if (lane >= off) incl += y;
+      }
+      int excl = incl - sum;
+      if (excl < k && k <= incl) {   // one lane: its bins hold the k-th key
+        int j = 0;
+        while (excl + c[j] < k) excl += c[j++];
+        sm.st = RadixState{(prefix << 8) | (uint64_t)(8 * lane + j), next,
+                           k - excl, below + excl, c[j]};
+      }
+    }
+    __syncthreads();
+    prefix = sm.st.prefix;
+    shift = sm.st.shift;
+    k = sm.st.k;
+    below = sm.st.below;
+    eq = sm.st.eq;
+  }
+
+  // 3. stable compaction: under the prefix to [0, below), in it after
+  const int n_eq = below + eq <= bound ? eq : k;
+  const int n_cand = below + n_eq;
+  int lt_n = 0, eq_n = 0;
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    if (base + i < cap) {
+      const uint64_t t = key_top(key[i], shift);
+      lt_n += t < prefix;
+      eq_n += t == prefix;
+    }
+  }
+  const int pos = block_excl_scan(lt_n | (eq_n << 16), sm.warp_tot);
+  int lt_pos = pos & 0xffff, eq_pos = pos >> 16;
+#pragma unroll
+  for (int i = 0; i < IPT; ++i) {
+    if (base + i < cap) {
+      const uint64_t t = key_top(key[i], shift);
+      int p = -1;
+      if (t < prefix)
+        p = lt_pos++;
+      else if (t == prefix && eq_pos++ < n_eq)
+        p = below + eq_pos - 1;
+      if (p >= 0) {
+        sm.sk[0][p] = key[i];
+        sm.si[0][p] = base + i;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. bitonic sort of the n_cand candidates, padded to a power of two
+  uint64_t kv = tid < n_cand ? sm.sk[0][tid] : KEY_MAX;
+  int32_t iv = tid < n_cand ? sm.si[0][tid] : I32_MAX;
+  int n = 1;
+  while (n < n_cand) n <<= 1;
+  bitonic_regs(kv, iv, n, sm.sk, sm.si);
+  return iv;
+}
+
+// select_events with 2m <= min(n_pad, RADIX_CAND): the radix selection,
+// the first m slots written out.
+template <int IPT>
+__global__ void __launch_bounds__(RADIX_THREADS)
+select_events_kernel(const int32_t* __restrict__ time_key,
+                     const int32_t* __restrict__ seq,
+                     int32_t* __restrict__ out, int cap, int m, int bound) {
+  __shared__ RadixSmem sm;
+  const int a = blockIdx.x;
+  const int32_t slot = radix_select<IPT>(time_key + (size_t)a * cap,
+                                         seq + (size_t)a * cap, cap, m, bound,
+                                         sm);
+  if (threadIdx.x < m) out[(size_t)a * m + threadIdx.x] = slot;
+}
+
+// The radix kernels' template argument: slots a thread, the least of 1, 2,
+// 4, 8, 16 that covers cap with RADIX_THREADS threads. f(IPT) launches.
+template <typename F>
+int radix_dispatch(int cap, F&& f) {
+  const int ipt = (cap + RADIX_THREADS - 1) / RADIX_THREADS;
+  if (ipt <= 1)
+    f(std::integral_constant<int, 1>());
+  else if (ipt <= 2)
+    f(std::integral_constant<int, 2>());
+  else if (ipt <= 4)
+    f(std::integral_constant<int, 4>());
+  else if (ipt <= 8)
+    f(std::integral_constant<int, 8>());
+  else if (ipt <= 16)
+    f(std::integral_constant<int, 16>());
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------- stable per-key ranks
@@ -487,16 +551,25 @@ __global__ void ring_slots_kernel(const int32_t* __restrict__ ring,
 
 // ------------------------------------------------------------ fused select
 // The window front end in one CTA per agent:
-//   1. sort (time_key, seq, slot) in shared memory, as select_events: the
-//      TPU kernel carries every field (76 B per slot) through its network,
-//      which at pool_cap 4096 would need 311,296 B of the 232,448 B a block
-//      has; sorting 12 B per slot and gathering the m window lanes' fields
-//      from device memory afterwards fits up to pool_cap 16384;
-//   2. gather the window lanes by slot (payload words as raw bits) and
-//      reuse the sort buffers: t[i] = rkey = table_id * n_res + res,
-//      s[i] = flags (safe, conflict candidate, clipped kind << 8);
-//   3. conflict: a candidate lane (safe, table_id > 0) is dirty if another
-//      candidate lane has its rkey (the reference's pairwise count >= 2);
+//   1. select the first m slots of the (time_key, seq, slot) order, as
+//      select_events does: the radix selection (radix_select, one CTA of
+//      RADIX_THREADS, thread i holding lane i's slot) when 2m <=
+//      min(n_pad, RADIX_CAND), the main path (m = 256 of 4096), else the
+//      bitonic sort of 12 B per slot (sort_slots, up to pool_cap 16384).
+//      The TPU kernel carries every field (76 B per slot) through its
+//      network, which at pool_cap 4096 would need 311,296 B of the 232,448
+//      B a block has; here only the keys are ordered, and the m window
+//      lanes' fields are gathered from device memory afterwards;
+//   2. gather the window lanes by slot (payload words as raw bits) with
+//      each lane's rkey = table_id * n_res + res and flags (safe, conflict
+//      candidate: safe and table_id > 0, clipped kind << 8);
+//   3. conflict: a candidate lane is dirty if another candidate lane has
+//      its rkey (the reference's pairwise count >= 2). The lanes are sorted
+//      by (rkey, not a candidate, lane) with the same bitonic network as
+//      step 1 (one a thread on the radix path, in shared memory on the
+//      other), and a candidate is dirty when a sorted neighbour has its
+//      rkey and is a candidate: O(m log^2 m) compares, not the m^2 of a
+//      pairwise scan;
 //   4. group the clean lanes by kind, stable in window position, with the
 //      ballot ranks of group_by_kind, and write the per-kind counts;
 //   5. release positions (free_tail + exclusive count of safe) % cap, with
@@ -519,98 +592,174 @@ struct FusedOut {
   int32_t *order, *rel_pos, *counts;
 };
 
-__global__ void fused_select_kernel(FusedIn in, FusedOut out, int cap,
-                                    int n_pad, int m, int n_pay, int n_kinds,
-                                    int n_res) {
-  extern __shared__ int32_t smem[];
-  int32_t* rkey = smem;            // the sort's time keys, then rkey
-  int32_t* flags = smem + n_pad;   // the sort's seqs, then lane flags
-  int32_t* ix = smem + 2 * n_pad;  // the sort's slots, then clean flags
-  __shared__ int warp_tot[MAX_WARPS * MAX_KEYS];
-  __shared__ int cnt[MAX_KEYS];
-  __shared__ int start[MAX_KEYS];
-  __shared__ int carry[MAX_KEYS];
-  __shared__ int scan_carry;
-  const int a = blockIdx.x;
-  const int n_keys = n_kinds + 1;
-  const size_t base = (size_t)a * cap;
-  const size_t obase = (size_t)a * m;
+struct GroupSmem {
+  int warp_tot[MAX_WARPS * MAX_KEYS];
+  int cnt[MAX_KEYS], start[MAX_KEYS], carry[MAX_KEYS];
+  int scan_carry;
+};
+
+// The per-key counts and carries start at 0 (read after a later barrier).
+__device__ void group_init(GroupSmem& gs, int n_keys) {
   for (int g = threadIdx.x; g < n_keys; g += blockDim.x) {
-    cnt[g] = 0;
-    carry[g] = 0;
+    gs.cnt[g] = 0;
+    gs.carry[g] = 0;
   }
-  if (threadIdx.x == 0) scan_carry = 0;
-  sort_slots(in.time_key + base, in.seq + base, cap, n_pad, rkey, flags, ix);
+  if (threadIdx.x == 0) gs.scan_carry = 0;
+}
 
-  // 2. gather the window
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int slot = ix[i];
-    const size_t g = base + slot;
-    const size_t o = obase + i;
-    const bool es = in.safe[g] != 0;
-    const int32_t tb = in.table_id[g];
-    const int32_t kd = in.kind[g];
-    out.exec_idx[o] = slot;
-    out.exec_safe[o] = es;
-    out.time[o] = in.time[g];
-    out.seq[o] = in.seq[g];
-    out.kind[o] = kd;
-    out.src[o] = in.src[g];
-    out.dst[o] = in.dst[g];
-    out.ctx[o] = in.ctx[g];
-    out.valid[o] = in.valid[g] != 0;
-    for (int p = 0; p < n_pay; ++p)
-      out.payload[o * n_pay + p] = in.payload[g * n_pay + p];
-    rkey[i] = (int32_t)((uint32_t)tb * (uint32_t)n_res + (uint32_t)in.res[g]);
-    flags[i] = (es ? 1 : 0) | ((es && tb > 0) ? 2 : 0) |
-               (min(max(kd, 0), n_kinds - 1) << 8);
-  }
-  __syncthreads();
+// Lane o's fields from pool slot `slot` (base: the agent's first slot);
+// returns the lane's rkey and sets its flags: bit 0 safe, bit 1 conflict
+// candidate, bits 8-12 the clipped kind.
+__device__ int32_t gather_lane(const FusedIn& in, const FusedOut& out,
+                               size_t base, size_t o, int slot, int n_pay,
+                               int n_kinds, int n_res, int32_t& flags) {
+  const size_t g = base + slot;
+  const bool es = in.safe[g] != 0;
+  const int32_t tb = in.table_id[g];
+  const int32_t kd = in.kind[g];
+  out.exec_idx[o] = slot;
+  out.exec_safe[o] = es;
+  out.time[o] = in.time[g];
+  out.seq[o] = in.seq[g];
+  out.kind[o] = kd;
+  out.src[o] = in.src[g];
+  out.dst[o] = in.dst[g];
+  out.ctx[o] = in.ctx[g];
+  out.valid[o] = in.valid[g] != 0;
+  for (int p = 0; p < n_pay; ++p)
+    out.payload[o * n_pay + p] = in.payload[g * n_pay + p];
+  flags = (es ? 1 : 0) | ((es && tb > 0) ? 2 : 0) |
+          (min(max(kd, 0), n_kinds - 1) << 8);
+  return (int32_t)((uint32_t)tb * (uint32_t)n_res + (uint32_t)in.res[g]);
+}
 
-  // 3. conflicts
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int fj = flags[j];
-    bool dirty = false;
-    if (fj & 2) {
-      const int32_t rk = rkey[j];
-      for (int i = 0; i < m; ++i) {
-        if (i != j && (flags[i] & 2) && rkey[i] == rk) {
-          dirty = true;
-          break;
-        }
-      }
-    }
-    const bool clean = (fj & 1) && !dirty;
-    out.clean[obase + j] = clean;
-    ix[j] = clean;
-  }
-  __syncthreads();
+// A sorted conflict entry: v = lane | flags << 16. Writes the lane's clean
+// flag, its grouping key (clipped kind if clean, else n_kinds) to gk and
+// its safe flag to es, both in lane order.
+__device__ __forceinline__ void lane_result(const FusedOut& out,
+                                            size_t obase, int32_t v,
+                                            bool dirty, int n_kinds,
+                                            int32_t* gk, int32_t* es) {
+  const int lane = v & 0xffff, fl = (v >> 16) & 0x1fff;
+  const bool clean = (fl & 1) && !dirty;
+  out.clean[obase + lane] = clean;
+  gk[lane] = clean ? fl >> 8 : n_kinds;
+  es[lane] = fl & 1;
+}
 
-  // 4. group the clean lanes by kind: key counts, segment starts, ranks
+// Steps 4-5 from the lane-order arrays gk and es (after a barrier).
+__device__ void group_release(const int32_t* gk, const int32_t* es,
+                              const FusedOut& out, int a, int m, int n_kinds,
+                              int cap, int32_t tail, GroupSmem& gs) {
+  const int n_keys = n_kinds + 1;
+  const size_t obase = (size_t)a * m;
   for (int i = threadIdx.x; i < m; i += blockDim.x)
-    atomicAdd(&cnt[ix[i] ? (flags[i] >> 8) : n_kinds], 1);
+    atomicAdd(&gs.cnt[gk[i]], 1);
   __syncthreads();
   if (threadIdx.x == 0) {
     int acc = 0;
     for (int g = 0; g < n_keys; ++g) {
-      start[g] = acc;
-      acc += cnt[g];
+      gs.start[g] = acc;
+      acc += gs.cnt[g];
     }
   }
   for (int g = threadIdx.x; g < n_kinds; g += blockDim.x)
-    out.counts[(size_t)a * n_kinds + g] = cnt[g];
+    out.counts[(size_t)a * n_kinds + g] = gs.cnt[g];
   __syncthreads();
-  const int32_t tail = in.free_tail[a];
   for (int b = 0; b < m; b += blockDim.x) {
     const int i = b + threadIdx.x;
-    const int k = i < m ? (ix[i] ? (flags[i] >> 8) : n_kinds) : -1;
-    const int r = chunk_rank(k, n_keys, warp_tot, carry);
-    if (i < m) out.order[obase + start[k] + r] = i;
-    // 5. release positions
-    const int e = chunk_excl_count(i < m && (flags[i] & 1), warp_tot,
-                                   &scan_carry);
+    const int k = i < m ? gk[i] : -1;
+    const int r = chunk_rank(k, n_keys, gs.warp_tot, gs.carry);
+    if (i < m) out.order[obase + gs.start[k] + r] = i;
+    const int e = chunk_excl_count(i < m && es[i], gs.warp_tot,
+                                   &gs.scan_carry);
     if (i < m) out.rel_pos[obase + i] = ring_pos(tail, e, cap);
   }
+}
+
+// The main path: the radix selection, then the conflict sort one a thread.
+template <int IPT>
+__global__ void __launch_bounds__(RADIX_THREADS)
+fused_select_radix_kernel(FusedIn in, FusedOut out, int cap, int m,
+                          int n_pay, int n_kinds, int n_res, int bound) {
+  __shared__ RadixSmem sm;
+  __shared__ GroupSmem gs;
+  const int a = blockIdx.x, tid = threadIdx.x;
+  const size_t base = (size_t)a * cap, obase = (size_t)a * m;
+  group_init(gs, n_kinds + 1);
+  const int32_t slot = radix_select<IPT>(in.time_key + base, in.seq + base,
+                                         cap, m, bound, sm);
+  // 2. gather; the conflict key: rkey, then 0 for a candidate
+  uint64_t kv = KEY_MAX;
+  int32_t iv = I32_MAX;
+  if (tid < m) {
+    int32_t fl;
+    const int32_t rk = gather_lane(in, out, base, obase + tid, slot, n_pay,
+                                   n_kinds, n_res, fl);
+    kv = ((uint64_t)(uint32_t)rk << 1) | (uint64_t)((fl & 2) == 0);
+    iv = tid | (fl << 16);
+  }
+  // 3. conflicts
+  int n = 1;
+  while (n < m) n <<= 1;
+  __syncthreads();   // the selection's exchange buffers are read
+  bitonic_regs(kv, iv, n, sm.sk, sm.si);
+  __syncthreads();
+  sm.sk[0][tid] = kv;
+  __syncthreads();
+  int32_t* gk = sm.si[0];
+  int32_t* es = sm.si[1];
+  if (tid < m) {
+    const bool same = (tid > 0 && sm.sk[0][tid - 1] == kv) ||
+                      (tid + 1 < n && sm.sk[0][tid + 1] == kv);
+    lane_result(out, obase, iv, (kv & 1) == 0 && same, n_kinds, gk, es);
+  }
+  __syncthreads();
+  group_release(gk, es, out, a, m, n_kinds, cap, in.free_tail[a], gs);
+}
+
+// A larger m: the bitonic sort of the pool, then the conflict sort in the
+// same shared memory (t, s, ix: 12 * n_pad B).
+__global__ void fused_select_sort_kernel(FusedIn in, FusedOut out, int cap,
+                                         int n_pad, int m, int n_pay,
+                                         int n_kinds, int n_res) {
+  extern __shared__ int32_t smem[];
+  int32_t* t = smem;            // time keys, then rkeys, then gk
+  int32_t* s = smem + n_pad;    // seqs, then "not a candidate", then es
+  int32_t* ix = smem + 2 * n_pad;   // slots, then lane | flags << 16
+  __shared__ GroupSmem gs;
+  const int a = blockIdx.x;
+  const size_t base = (size_t)a * cap, obase = (size_t)a * m;
+  group_init(gs, n_kinds + 1);
+  sort_slots(in.time_key + base, in.seq + base, cap, n_pad, t, s, ix);
+
+  // 2. gather lane i into entry i; pads up to n, the power of two >= m
+  int n = 1;
+  while (n < m) n <<= 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (i < m) {
+      int32_t fl;
+      t[i] = gather_lane(in, out, base, obase + i, ix[i], n_pay, n_kinds,
+                         n_res, fl);
+      s[i] = (fl & 2) == 0;
+      ix[i] = i | (fl << 16);
+    } else {
+      t[i] = s[i] = ix[i] = I32_MAX;
+    }
+  }
+  __syncthreads();
+  // 3. conflicts: a dirty entry is marked in bit 30 of its ix
+  bitonic_smem(t, s, ix, n);
+  for (int p = threadIdx.x; p < m; p += blockDim.x) {
+    const bool same = (p > 0 && t[p - 1] == t[p] && s[p - 1] == s[p]) ||
+                      (p + 1 < n && t[p + 1] == t[p] && s[p + 1] == s[p]);
+    if (s[p] == 0 && same) ix[p] |= 1 << 30;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < m; p += blockDim.x)
+    lane_result(out, obase, ix[p], (ix[p] >> 30) & 1, n_kinds, t, s);
+  __syncthreads();
+  group_release(t, s, out, a, m, n_kinds, cap, in.free_tail[a], gs);
 }
 
 int threads_for(int n) {
@@ -635,27 +784,12 @@ int launch_select_events(const int32_t* time_key, const int32_t* seq,
   if (n_agents < 1 || cap < 1 || n_pad < cap || m < 1 || m > cap)
     return (int)cudaErrorInvalidValue;
   if (2 * m <= n_pad && 2 * m <= RADIX_CAND) {
-    int bound = 1;
-    while (bound < 2 * m) bound <<= 1;
-    const int ipt = (cap + RADIX_THREADS - 1) / RADIX_THREADS;
-    if (ipt <= 1)
-      select_events_kernel<1><<<n_agents, RADIX_THREADS, 0, s>>>(
-          time_key, seq, out, cap, m, bound);
-    else if (ipt <= 2)
-      select_events_kernel<2><<<n_agents, RADIX_THREADS, 0, s>>>(
-          time_key, seq, out, cap, m, bound);
-    else if (ipt <= 4)
-      select_events_kernel<4><<<n_agents, RADIX_THREADS, 0, s>>>(
-          time_key, seq, out, cap, m, bound);
-    else if (ipt <= 8)
-      select_events_kernel<8><<<n_agents, RADIX_THREADS, 0, s>>>(
-          time_key, seq, out, cap, m, bound);
-    else if (ipt <= 16)
-      select_events_kernel<16><<<n_agents, RADIX_THREADS, 0, s>>>(
-          time_key, seq, out, cap, m, bound);
-    else
-      return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+    const int bound = radix_bound(m);
+    return radix_dispatch(cap, [&](auto ipt) {
+      select_events_kernel<decltype(ipt)::value>
+          <<<n_agents, RADIX_THREADS, 0, s>>>(time_key, seq, out, cap, m,
+                                               bound);
+    });
   }
   static bool configured = false;
   if (!configured) {
@@ -711,8 +845,9 @@ int launch_ring_slots(const int32_t* ring, const int32_t* head,
 
 // Inputs, then outputs in the order of the FusedSelect fields, then the
 // per-kind counts (A, n_kinds); outputs are (A, m) (payload (A, m, n_pay));
-// bool tensors are one byte.
-// Shared memory is 12 * n_pad B dynamic plus the static rank tables.
+// bool tensors are one byte. 2m <= min(n_pad, RADIX_CAND) runs the radix
+// selection (static shared memory), a larger m the bitonic sort (12 * n_pad
+// B of dynamic shared memory, its limit raised once per process).
 int launch_fused_select(
     const int32_t* time_key, const int32_t* seq, const uint8_t* safe,
     const int32_t* time, const int32_t* kind, const int32_t* src,
@@ -724,19 +859,34 @@ int launch_fused_select(
     uint8_t* clean, int32_t* order, int32_t* rel_pos, int32_t* counts,
     int n_agents, int cap, int n_pad, int m, int n_pay, int n_kinds,
     int n_res, void* stream) {
-  const size_t smem = (size_t)3 * n_pad * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_agents < 1 || cap < 1 || n_pad < cap || m < 1 || m > cap ||
+      n_kinds < 1 || n_kinds > MAX_KEYS - 1)
+    return (int)cudaErrorInvalidValue;
   const FusedIn in{time_key, seq, safe, time, kind, src, dst, ctx, valid,
                    table_id, res, payload, free_tail};
   const FusedOut out{exec_idx, exec_safe, o_time, o_seq, o_kind, o_src,
                      o_dst, o_ctx, o_valid, o_payload, clean, order,
                      rel_pos, counts};
-  fused_select_kernel<<<n_agents, threads_for(n_pad / 2), smem,
-                        (cudaStream_t)stream>>>(in, out, cap, n_pad, m,
-                                                n_pay, n_kinds, n_res);
+  if (2 * m <= n_pad && 2 * m <= RADIX_CAND) {
+    const int bound = radix_bound(m);
+    return radix_dispatch(cap, [&](auto ipt) {
+      fused_select_radix_kernel<decltype(ipt)::value>
+          <<<n_agents, RADIX_THREADS, 0, s>>>(in, out, cap, m, n_pay,
+                                               n_kinds, n_res, bound);
+    });
+  }
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_select_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        3 * MAX_SORT_SLOTS * (int)sizeof(int32_t));
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const size_t smem = (size_t)3 * n_pad * sizeof(int32_t);
+  fused_select_sort_kernel<<<n_agents, threads_for(n_pad / 2), smem, s>>>(
+      in, out, cap, n_pad, m, n_pay, n_kinds, n_res);
   return (int)cudaGetLastError();
 }
 

@@ -1,47 +1,77 @@
-// Chunked gated linear attention for Hopper (sm_90a), both modes of one
-// kernel template.
+// Chunked gated linear attention for Hopper (sm_90a): an FFMA kernel
+// template for both modes and a tensor-core kernel for RWKV6 in bfloat16.
 //
 //   gla_scan mode "k"  replaces repro/kernels/rwkv6_scan.py::_gla_kernel_k
-//                      (RWKV6 time mix: decay on K, bonus u on the diagonal)
+//                      (RWKV6 time mix: decay on K, bonus u on the diagonal):
+//                      rwkv6_tc_kernel for bfloat16 q, k, v (the serve
+//                      path), gla_kernel<float, true> for float32
 //   gla_scan mode "v"  replaces repro/kernels/rwkv6_scan.py::_gla_kernel_v
 //                      (Mamba2-style SSD: decay on V, inclusive diagonal),
-//                      reached through repro/kernels/ssm_scan.py::ssd_pallas
+//                      reached through repro/kernels/ssm_scan.py::ssd_pallas:
+//                      gla_kernel<T, false>
 //   (wrapper gla_pallas, pallas_call at rwkv6_scan.py:129)
 //
 // q, k (BH, S, dk) and v (BH, S, dv) in float32 or bfloat16; the decays w
 // (BH, S, dk) in mode k, (BH, S, dv) in mode v, and u (BH, dk), in float32.
 // Out (BH, S, dv) in q's type, the final state (BH, dk, dv) in float32; the
-// state starts at zero. One CTA of 256 threads per bh: the TPU grid's
-// sequential chunk axis is a loop inside the CTA, and the (dk, dv) float32
-// state stays in shared memory across chunks (16 KB at 64 x 64). Per chunk
-// of C rows, staged in shared memory as float32 with odd row strides (no
-// bank conflicts in the products):
+// state starts at zero. Per chunk of C rows (the TPU grid's sequential
+// chunk axis is a loop inside one CTA per bh):
 //
-//   1. the cumulative decays of each column (one thread per column, in
-//      order): qs = exp(cumsum(log w)); mode k: r_t = q * (qs / w),
-//      k_t = k / qs; mode v: v_t = v / qs;
+//   1. the cumulative decays of each column: qs = exp(cumsum(log w));
+//      mode k: r_t = q * (qs / w), k_t = k / qs; mode v: v_t = v / qs;
 //   2. A (C x C): mode k r_t k_t^T below the diagonal and sum(q * u * k) on
 //      it; mode v q k^T on and below it;
 //   3. out = r_t S + A v (mode k), qs * (q S + A v_t) (mode v);
 //   4. S = S * qs[-1] + (k_t * qs[-1])^T v (mode k),
 //      S = qs[-1] * (S + k^T v_t) (mode v).
 //
-// That is the TPU kernel's math, bf16 operands upcast to float32, with
-// float32 FFMA in place of the MXU's products. Its numerics are kept, not
-// fixed: k / qs divides by a product of up to C decays, which underflows to
-// 0 in float32 for decays near the model's floor exp(-8), and then the
-// result is inf or NaN, as in the reference.
+// Both kernels keep the reference's numerics, not fixed: k / qs divides by
+// a product of up to C decays, which underflows to 0 in float32 for decays
+// near the model's floor exp(-8), and then the result is inf or NaN, as in
+// the reference.
 //
-// What bounds it on this card: at rwkv6-7b's prefill (B * 64 heads, S 2048,
-// dk = dv = 64, C = 64) a call at B = 4 moves 406 MB (0.12 ms at 3.35 TB/s)
-// and needs 12.9 GFLOP of float32 products (0.19 ms at 67 TFLOP/s outside
-// the tensor cores), so operations bound it; at hymba-1.5b's SSD (B * 25
-// heads, dk 16, dv 64) the bytes do (118 MB, 0.035 ms, against 1.9 GFLOP).
-// The design keeps the state and every intermediate on chip, so each input
-// byte is read once and each output byte written once; its products run on
-// CUDA cores from shared memory, and B * heads CTAs (100 for hymba at B = 4)
-// underfill the 132 SMs. Tensor-core tiles and a split of the chunk's
-// intra-chunk products over several CTAs are the later work.
+// What bounds them on this card. rwkv6-7b's prefill (B * 64 heads, S 2048,
+// dk = dv = 64, C = 64) moves 406.8 MB a call at B = 4 (0.121 ms at 3.35
+// TB/s) and needs 17.2 GFLOP of products with the state update split in
+// two (0.035 ms at TF32's 495 TFLOP/s), so bytes bound rwkv6_tc_kernel;
+// hymba-1.5b's SSD (B * 25 heads, dk 16, dv 64) is bound by its bytes too
+// (118 MB, 0.035 ms).
+//
+// rwkv6_tc_kernel (one CTA of 8 warps per bh; chunk, dk and dv padded to
+// one 64-wide tile, so each may be any multiple of 8 up to 64):
+//   - the products run on the tensor cores, mma.sync m16n8k8 in TF32 with
+//     float32 sums: A = r_t k_t^T, r_t S and A v with operands rounded to
+//     nearest (cvt.rna), and the state update with x = k_t * qs[-1] split
+//     into hi = tf32(x) and lo = tf32(x - hi), two products against v (a
+//     bf16 v is exact in TF32), so the carried state keeps float32
+//     accuracy (one TF32 rounding there fails the state tolerance);
+//   - warp w owns rows 16 (w & 3) of the chunk and of the state and
+//     columns 32 (w >> 2): the state lives in its mma accumulators across
+//     the chunks, and A in the accumulators of the warp that uses it, read
+//     as the A operand of A v with the k index permuted (k-index t is
+//     column 2t, t + 4 is 2t + 1; v's rows are read to match), so A never
+//     goes through shared memory; the two warps of a row block both compute
+//     its A (the cheapest product, a triangle);
+//   - a chunk runs A with r_t S, then A v and the output's store, then the
+//     state update, so A's and the output's accumulators are dead while the
+//     state's are updated: 128 registers a thread and no spill;
+//   - the cumulative decay: log w once per element, each of 256 threads
+//     sums 16 rows of one column, and the four segments' totals combine
+//     through shared memory (a warp holds 32 columns of one segment, so
+//     every load is conflict-free), in place of one thread walking 64 rows;
+//   - the next chunk's q, k, v and w land in a staging buffer by cp.async
+//     (16 B a thread) while the current chunk computes from its converted
+//     tiles (r_t and k_t in float32, v in bf16, the state in TF32), so the
+//     staging buffer and the converted tiles form a two-stage ring;
+//   - row strides of 68 and 72 words make every fragment load
+//     conflict-free; 105,216 B of shared memory and __launch_bounds__(256,
+//     2) keep two CTAs on an SM, so the 256 bh of B = 4 run in one wave on
+//     132 SMs.
+//
+// gla_kernel (float32 inputs, and mode v): 256 threads per bh, the chunk's
+// tiles staged in shared memory as float32 with odd row strides, the (dk,
+// dv) state in shared memory; the products run as float32 FFMA from shared
+// memory, and the cumulative decays one thread per column.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,6 +221,355 @@ gla_kernel(const T* __restrict__ q, const T* __restrict__ k,
     state_out[(size_t)bh * dk * dv + idx] = st[idx];
 }
 
+// ------------------------------------------------------ rwkv6_tc_kernel
+namespace tc {
+
+constexpr int T = 64;          // chunk rows, dk and dv, padded to one tile
+constexpr int THREADS = 256;   // 8 warps
+constexpr int LDF = 68;        // words a row of r_t and k_t
+constexpr int LDS = 72;        // words a row of the state
+constexpr int LDV = 72;        // bf16 a row of v
+
+// shared memory, in bytes: the staging buffer (the next chunk as it lies in
+// device memory), then the converted tiles and the small tables
+constexpr int ST_Q = 0;
+constexpr int ST_K = ST_Q + T * T * 2;
+constexpr int ST_V = ST_K + T * T * 2;
+constexpr int ST_W = ST_V + T * T * 2;
+constexpr int RT_OFF = ST_W + T * T * 4;       // r_t, TF32 bits
+constexpr int KT_OFF = RT_OFF + T * LDF * 4;   // k_t, float32
+constexpr int V_OFF = KT_OFF + T * LDF * 4;    // v, bf16
+constexpr int S_OFF = V_OFF + T * LDV * 2;     // the state, TF32 bits
+constexpr int TOT_OFF = S_OFF + T * LDS * 4;   // 4 segment sums of log w
+constexpr int LAST_OFF = TOT_OFF + 4 * T * 4;  // qs[-1] of each column
+constexpr int DG_OFF = LAST_OFF + T * 4;       // the bonus diagonal, 2 halves
+constexpr int SMEM = DG_OFF + 2 * T * 4;       // 105,216
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 operands, float32 sums
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x) << 16;   // exact in TF32
+}
+
+// One step of a butterfly that sums 16 rows over a warp's 32 lanes while
+// halving the rows each lane keeps: lanes with bit 2N set keep rows N..2N-1.
+template <int N>
+__device__ __forceinline__ void fold_rows(float (&x)[16], int lane) {
+  const bool up = lane & (2 * N);
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const float send = up ? x[r] : x[r + N];
+    const float keep = up ? x[r + N] : x[r];
+    x[r] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * N);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+rwkv6_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const float* __restrict__ w, const float* __restrict__ u,
+                __nv_bfloat16* __restrict__ out,
+                float* __restrict__ state_out, int S, int dk, int dv,
+                int C) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const __nv_bfloat16* qst = reinterpret_cast<const __nv_bfloat16*>(sm + ST_Q);
+  const __nv_bfloat16* kst = reinterpret_cast<const __nv_bfloat16*>(sm + ST_K);
+  const __nv_bfloat16* vst = reinterpret_cast<const __nv_bfloat16*>(sm + ST_V);
+  const float* wst = reinterpret_cast<const float*>(sm + ST_W);
+  float* rt = reinterpret_cast<float*>(sm + RT_OFF);
+  float* kt = reinterpret_cast<float*>(sm + KT_OFF);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(sm + V_OFF);
+  float* ss = reinterpret_cast<float*>(sm + S_OFF);
+  float* tot = reinterpret_cast<float*>(sm + TOT_OFF);
+  float* last = reinterpret_cast<float*>(sm + LAST_OFF);
+  float* dgp = reinterpret_cast<float*>(sm + DG_OFF);
+
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  // products: fragment coordinates, the warp's row block (rows of the chunk
+  // and of the state) and column half (columns of out and of the state)
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 3, r0 = 16 * mt, c0w = 32 * (warp >> 2);
+  // conversion: column cd, rows 16 sg .. 16 sg + 15 (a segment is 2 warps)
+  const int cd = tid & 63, sg = tid >> 6;
+  const float ud = (u != nullptr && cd < dk) ? u[(size_t)bh * dk + cd] : 0.f;
+
+  q += (size_t)bh * S * dk;
+  k += (size_t)bh * S * dk;
+  v += (size_t)bh * S * dv;
+  w += (size_t)bh * S * dk;
+  out += (size_t)bh * S * dv;
+
+  // the C rows of q, k, v and w from row c into the staging buffer
+  auto stage = [&](int c) {
+    const char* src[4] = {reinterpret_cast<const char*>(q + (size_t)c * dk),
+                          reinterpret_cast<const char*>(k + (size_t)c * dk),
+                          reinterpret_cast<const char*>(v + (size_t)c * dv),
+                          reinterpret_cast<const char*>(w + (size_t)c * dk)};
+    const int bytes[4] = {C * dk * 2, C * dk * 2, C * dv * 2, C * dk * 4};
+    const int dst[4] = {ST_Q, ST_K, ST_V, ST_W};
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      for (int o = tid * 16; o < bytes[p]; o += THREADS * 16)
+        cp16(sm + dst[p] + o, src[p] + o);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  // the state: rows r0 + g (+8), columns c0w + 8n + 2t (+1)
+  float sacc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+
+  stage(0);
+  for (int c0 = 0; c0 < S; c0 += C) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();   // the chunk is staged; the last one's products done
+
+    // the state entering the chunk, as the B operand of r_t S
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = c0w + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(&ss[(r0 + g) * LDS + col]) =
+          make_float2(__uint_as_float(tf32(sacc[n][0])),
+                      __uint_as_float(tf32(sacc[n][1])));
+      *reinterpret_cast<float2*>(&ss[(r0 + g + 8) * LDS + col]) =
+          make_float2(__uint_as_float(tf32(sacc[n][2])),
+                      __uint_as_float(tf32(sacc[n][3])));
+    }
+
+    // 1. log w once an element; each thread sums its 16 rows
+    float lw[16], part = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int i = 16 * sg + r;
+      lw[r] = (i < C && cd < dk) ? logf(wst[i * dk + cd]) : 0.f;
+      part += lw[r];
+    }
+    tot[sg * T + cd] = part;
+    __syncthreads();
+
+    // the segments before this one, then the rows in order: qs, r_t, k_t,
+    // v and the bonus products; padded rows and columns give zeros (qs 1)
+    float cum = 0.f;
+    for (int s2 = 0; s2 < sg; ++s2) cum += tot[s2 * T + cd];
+    float dg[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int i = 16 * sg + r;
+      cum += lw[r];
+      const float qs = expf(cum);
+      float rv = 0.f, kv = 0.f, p = 0.f;
+      if (i < C && cd < dk) {
+        const float qv = __bfloat162float(qst[i * dk + cd]);
+        const float kx = __bfloat162float(kst[i * dk + cd]);
+        rv = qv * (qs / wst[i * dk + cd]);
+        kv = kx / qs;
+        p = qv * ud * kx;
+      }
+      if (i == C - 1) last[cd] = qs;
+      rt[i * LDF + cd] = __uint_as_float(tf32(rv));
+      kt[i * LDF + cd] = kv;
+      vs[i * LDV + cd] = (i < C && cd < dv) ? vst[i * dv + cd]
+                                            : __float2bfloat16_rn(0.f);
+      dg[r] = p;
+    }
+    // the bonus diagonal: row sums over the warp's 32 columns, then the two
+    // halves of dk added where it is read
+    fold_rows<8>(dg, lane);
+    fold_rows<4>(dg, lane);
+    fold_rows<2>(dg, lane);
+    fold_rows<1>(dg, lane);
+    dg[0] += __shfl_xor_sync(0xffffffffu, dg[0], 1);
+    if ((lane & 1) == 0) dgp[(warp & 1) * T + 16 * sg + (lane >> 1)] = dg[0];
+    __syncthreads();   // the tiles are converted; the staging buffer is free
+
+    if (c0 + C < S) stage(c0 + C);
+
+    // 2.-3. A = r_t k_t^T (the triangle this row block needs) and r_t S
+    float acc[8][4], oacc[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int kc = 8 * ks + t;
+      const uint32_t a0 = __float_as_uint(rt[(r0 + g) * LDF + kc]);
+      const uint32_t a1 = __float_as_uint(rt[(r0 + g + 8) * LDF + kc]);
+      const uint32_t a2 = __float_as_uint(rt[(r0 + g) * LDF + kc + 4]);
+      const uint32_t a3 = __float_as_uint(rt[(r0 + g + 8) * LDF + kc + 4]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (n <= 2 * mt + 1)
+          mma(acc[n], a0, a1, a2, a3, tf32(kt[(8 * n + g) * LDF + kc]),
+              tf32(kt[(8 * n + g) * LDF + kc + 4]));
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = c0w + 8 * n + g;
+        mma(oacc[n], a0, a1, a2, a3, __float_as_uint(ss[kc * LDS + col]),
+            __float_as_uint(ss[(kc + 4) * LDS + col]));
+      }
+    }
+    // A below the diagonal as computed, the bonus on it, zeros above
+    const float dga = dgp[r0 + g] + dgp[T + r0 + g];
+    const float dgb = dgp[r0 + g + 8] + dgp[T + r0 + g + 8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = r0 + g + (e >> 1) * 8, j = 8 * n + 2 * t + (e & 1);
+        acc[n][e] = j < i ? acc[n][e] : j == i ? (e >> 1 ? dgb : dga) : 0.f;
+      }
+
+    // 3. out += A v, then the chunk's output rows, rounded to bf16 (to
+    // nearest). k index t is row j0 = 8 ks + 2t, t + 4 is j0 + 1: A's
+    // accumulators are then its A operand as they stand.
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      if (ks <= 2 * mt + 1) {
+        const int j0 = 8 * ks + 2 * t;
+        const uint32_t a0 = tf32(acc[ks][0]), a1 = tf32(acc[ks][2]);
+        const uint32_t a2 = tf32(acc[ks][1]), a3 = tf32(acc[ks][3]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int col = c0w + 8 * n + g;
+          mma(oacc[n], a0, a1, a2, a3, bf16_bits(vs[j0 * LDV + col]),
+              bf16_bits(vs[(j0 + 1) * LDV + col]));
+        }
+      }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = c0w + 8 * n + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = r0 + g + 8 * h;
+        if (i < C && col < dv)
+          *reinterpret_cast<__nv_bfloat162*>(
+              &out[(size_t)(c0 + i) * dv + col]) =
+              __floats2bfloat162_rn(oacc[n][2 * h], oacc[n][2 * h + 1]);
+      }
+    }
+
+    // 4. S = S * qs[-1] + (hi + lo)^T v, x = k_t * qs[-1] split into hi +
+    // lo, with the same permuted k index (x^T reads k_t conflict-free)
+    const float la = last[r0 + g], lb = last[r0 + g + 8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      sacc[n][0] *= la;
+      sacc[n][1] *= la;
+      sacc[n][2] *= lb;
+      sacc[n][3] *= lb;
+    }
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const int j0 = 8 * ks + 2 * t;
+      const float x[4] = {kt[j0 * LDF + r0 + g] * la,
+                          kt[j0 * LDF + r0 + g + 8] * lb,
+                          kt[(j0 + 1) * LDF + r0 + g] * la,
+                          kt[(j0 + 1) * LDF + r0 + g + 8] * lb};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = tf32(x[e]);
+        lo[e] = tf32(x[e] - __uint_as_float(hi[e]));
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = c0w + 8 * n + g;
+        const uint32_t b0 = bf16_bits(vs[j0 * LDV + col]);
+        const uint32_t b1 = bf16_bits(vs[(j0 + 1) * LDV + col]);
+        mma(sacc[n], lo[0], lo[1], lo[2], lo[3], b0, b1);
+        mma(sacc[n], hi[0], hi[1], hi[2], hi[3], b0, b1);
+      }
+    }
+  }
+
+  state_out += (size_t)bh * dk * dv;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int col = c0w + 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = r0 + g + 8 * h;
+      if (d < dk && col < dv)
+        *reinterpret_cast<float2*>(&state_out[(size_t)d * dv + col]) =
+            make_float2(sacc[n][2 * h], sacc[n][2 * h + 1]);
+    }
+  }
+}
+
+// What the kernel takes: dk and dv multiples of 8 up to T, a chunk up to
+// T, and q, k, v and w 16-byte aligned (cp.async copies 16 B a thread).
+bool takes(const void* q, const void* k, const void* v, const void* w,
+           int dk, int dv, int C) {
+  const void* ptrs[4] = {q, k, v, w};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return dk % 8 == 0 && dv % 8 == 0 && dk <= T && dv <= T && C <= T;
+}
+
+// The shared-memory limit and carveout, once per process.
+cudaError_t configure() {
+  static bool done = false;
+  if (!done) {
+    cudaError_t e = cudaFuncSetAttribute(
+        rwkv6_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(rwkv6_tc_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    done = true;
+  }
+  return cudaSuccess;
+}
+
+int launch(const void* q, const void* k, const void* v, const void* w,
+           const void* u, void* out, void* state, int BH, int S, int dk,
+           int dv, int C, cudaStream_t stream) {
+  if (!takes(q, k, v, w, dk, dv, C)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = configure();
+  if (e != cudaSuccess) return (int)e;
+  rwkv6_tc_kernel<<<BH, THREADS, SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(w),
+      static_cast<const float*>(u), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(state), S, dk, dv, C);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, bool MODE_K>
 int launch(const void* q, const void* k, const void* v, const void* w,
            const void* u, void* out, void* state, int BH, int S, int dk,
@@ -222,8 +601,22 @@ long long gla_smem_bytes(int dk, int dv, int chunk, int mode_k) {
 
 int gla_max_smem() { return MAX_SMEM; }
 
+// rwkv6_tc_kernel's shared memory (bytes) and its resident CTAs per SM.
+int gla_tc_smem_bytes() { return tc::SMEM; }
+
+int gla_tc_blocks_per_sm() {
+  int n = 0;
+  if (tc::configure() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, tc::rwkv6_tc_kernel, tc::THREADS, tc::SMEM) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 // mode_k: 1 RWKV6 (u may be null: no bonus), 0 SSD (u ignored); dtype of
-// q, k, v and out: 0 float32, 1 bfloat16. Returns a cudaError_t.
+// q, k, v and out: 0 float32, 1 bfloat16. bfloat16 in mode k runs
+// rwkv6_tc_kernel (dk, dv multiples of 8 up to 64, chunk up to 64, q, k, v
+// and w 16-byte aligned), the rest gla_kernel. Returns a cudaError_t.
 int launch_gla_scan(const void* q, const void* k, const void* v,
                     const void* w, const void* u, void* out, void* state,
                     int BH, int S, int dk, int dv, int chunk, int mode_k,
@@ -238,8 +631,8 @@ int launch_gla_scan(const void* q, const void* k, const void* v,
                   : launch<float, false>(q, k, v, w, nullptr, out, state, BH,
                                          S, dk, dv, chunk, s);
   if (dtype == 1)
-    return mode_k ? launch<__nv_bfloat16, true>(q, k, v, w, u, out, state, BH,
-                                                S, dk, dv, chunk, s)
+    return mode_k ? tc::launch(q, k, v, w, u, out, state, BH, S, dk, dv,
+                               chunk, s)
                   : launch<__nv_bfloat16, false>(q, k, v, w, nullptr, out,
                                                  state, BH, S, dk, dv, chunk,
                                                  s);

@@ -6,8 +6,10 @@ first m of the (time, seq) order by a radix selection; a bitonic sort when
 (stable same-kind grouping), ``trace_rank`` (exclusive prefix count of an
 int32, bool or uint8 mask), ``route_rank`` (stable within-bucket ranks),
 ``ring_slots`` (free-ring insert slots) and ``fused_select`` (the whole
-window front end). Each wrapper checks device, dtype, shape and contiguity,
-allocates fresh outputs with ``torch.empty``, launches on the current
+window front end, its selection the same radix selection or bitonic sort).
+Each wrapper checks device, dtype, shape and contiguity, allocates fresh
+outputs with ``torch.empty`` (``fused_select`` one allocation carved into
+its fields), launches on the current
 stream (its raw handle, no ``torch.cuda.Stream`` object), raises if the
 launch was refused, and adds one to its entry of :data:`LAUNCHES`. They
 take CUDA tensors only; ``ops`` sends CPU tensors to the plain versions in
@@ -205,6 +207,33 @@ def ring_slots(free_ring: torch.Tensor, head: torch.Tensor,
     return out
 
 
+# fused_select's int32 outputs in one allocation, in this order; then the
+# payload words, the per-kind counts and the three bool outputs' bytes
+_FUSED_I32 = ("exec_idx", "time", "seq", "kind", "src", "dst", "ctx",
+              "order", "rel_pos")
+_FUSED_BOOL = ("exec_safe", "valid", "clean")
+
+
+def _fused_outputs(A: int, m: int, n_pay: int, n_kinds: int, dev
+                   ) -> tuple[FusedSelect, torch.Tensor]:
+    """Fresh ``fused_select`` outputs carved from one int32 allocation: the
+    fields are disjoint views (each contiguous, 4-byte aligned; the bools
+    one byte an entry), so writing one never touches another."""
+    am = A * m
+    n_i32 = len(_FUSED_I32) * am
+    words = (n_i32 + am * n_pay + A * n_kinds
+             + -(-len(_FUSED_BOOL) * am // 4))
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    i32, pay, counts, rest = buf.split(
+        [n_i32, am * n_pay, A * n_kinds, words - n_i32 - am * n_pay
+         - A * n_kinds])
+    fields = dict(zip(_FUSED_I32, i32.view(len(_FUSED_I32), A, m).unbind()))
+    b8 = rest.view(torch.uint8)[:len(_FUSED_BOOL) * am].view(torch.bool)
+    fields.update(zip(_FUSED_BOOL, b8.view(len(_FUSED_BOOL), A, m).unbind()))
+    fields["payload"] = pay.view(torch.float32).view(A, m, n_pay)
+    return FusedSelect(**fields), counts.view(A, n_kinds)
+
+
 def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
                  valid, table_id, res, free_tail, exec_cap: int, *,
                  n_kinds: int, n_res: int
@@ -229,20 +258,7 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
                          f", got {n_kinds}")
     n_pad = _sort_pad("fused_select", cap)
     m = max(min(int(exec_cap), cap), 1)
-    dev = time_key.device
-
-    def i32(*shape):
-        return torch.empty((A, m) + shape, dtype=torch.int32, device=dev)
-
-    def b8():
-        return torch.empty((A, m), dtype=torch.bool, device=dev)
-
-    out = FusedSelect(
-        exec_idx=i32(), exec_safe=b8(), time=i32(), seq=i32(), kind=i32(),
-        src=i32(), dst=i32(), ctx=i32(),
-        payload=torch.empty((A, m, n_pay), dtype=torch.float32, device=dev),
-        valid=b8(), clean=b8(), order=i32(), rel_pos=i32())
-    counts = torch.empty((A, n_kinds), dtype=torch.int32, device=dev)
+    out, counts = _fused_outputs(A, m, n_pay, n_kinds, time_key.device)
     ins = (time_key, seq, safe, time, kind, src, dst, ctx, valid, table_id,
            res, payload, free_tail)
     _launch("fused_select", _lib().launch_fused_select, time_key,

@@ -2,12 +2,15 @@
 
 Counterpart of ``repro.kernels.rwkv6_scan.gla_pallas``: mode "k" is the
 RWKV6 time mix (counted as ``rwkv6_scan``), mode "v" the SSD scan of
-``ssm_scan`` (counted as ``ssd_scan``). The wrapper checks device, dtype,
-shape and contiguity, allocates the outputs with ``torch.empty``, launches
-on the current stream, raises if the launch was refused or the shape needs
-more shared memory than a block has, and adds one to the mode's entry of
-:data:`LAUNCHES`. It takes CUDA tensors only; ``ops`` sends CPU tensors to
-the plain version in ``ref``.
+``ssm_scan`` (counted as ``ssd_scan``). bfloat16 in mode "k" runs the
+tensor-core kernel (TF32 products, one 64-wide tile: dk and dv multiples of
+8 up to 64, a chunk up to 64, inputs 16-byte aligned); float32 and mode "v"
+run the FFMA kernel. The wrapper checks device, dtype, shape, contiguity
+and what the kernel takes, allocates the outputs with ``torch.empty``,
+launches on the current stream, raises if the launch was refused or the
+shape needs more shared memory than a block has, and adds one to the mode's
+entry of :data:`LAUNCHES`. It takes CUDA tensors only; ``ops`` sends CPU
+tensors to the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from repro_torch.kernels import build
 LAUNCHES = {"rwkv6_scan": 0, "ssd_scan": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core kernel's tile: dk, dv and the chunk pad to it
+TC_TILE = 64
 
 
 def reset_launches() -> None:
@@ -32,6 +37,17 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"gla_scan: {name} must be a contiguous CUDA "
                          f"{dtype} {tuple(shape)} tensor, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
+
+
+def _check_tc(q, k, v, w, dk: int, dv: int, c: int) -> None:
+    """What the tensor-core kernel takes (bfloat16, mode "k")."""
+    if dk % 8 or dv % 8 or max(dk, dv, c) > TC_TILE:
+        raise ValueError(f"gla_scan: bfloat16 mode 'k' takes dk and dv "
+                         f"multiples of 8 up to {TC_TILE} and a chunk up to "
+                         f"{TC_TILE}, got dk {dk}, dv {dv}, chunk {c}")
+    if any(x.data_ptr() % 16 for x in (q, k, v, w)):
+        raise ValueError("gla_scan: bfloat16 mode 'k' takes q, k, v and w "
+                         "16-byte aligned")
 
 
 def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,6 +79,8 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(bh, s, dk, dv) < 1 or c < 1 or s % c:
         raise ValueError(f"gla_scan: chunk {chunk} does not divide the "
                          f"length of {tuple(q.shape)}")
+    if mode == "k" and q.dtype == torch.bfloat16:
+        _check_tc(q, k, v, w, dk, dv, c)
     lib = build.library("rwkv6_scan")
     need = lib.gla_smem_bytes(dk, dv, c, int(mode == "k"))
     if need > lib.gla_max_smem():

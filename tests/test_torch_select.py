@@ -10,7 +10,11 @@ and the bitonic network over the padded candidates with the kernel's
 compare rule. The model is held against the port's plain
 ``ref.select_events`` and the JAX package's ``select_events_ref`` on
 adversarial pools; ``chip_smoke.py`` holds the kernel against the plain
-version on the same pools on the card.
+version on the same pools on the card. ``fused_select_kernel``'s flow is
+modelled on top of it: the same selection, the gather, the conflict rule
+(the window's (rkey, not a candidate) keys sorted by the same networks, a
+candidate dirty when a sorted neighbour shares its key), the grouping and
+the release positions, held against ``ref.fused_select``'s pairwise count.
 """
 import numpy as np
 import pytest
@@ -222,3 +226,99 @@ def test_radix_selection_steps():
     order = np.lexsort((ci[:300], keys))
     np.testing.assert_array_equal(si[:300], ci[:300][order])
     np.testing.assert_array_equal(sk[:300], keys[order])
+
+
+def fused_model(cols, exec_cap, n_kinds, n_res):
+    """``fused_select`` as the kernel computes it, one agent at a time:
+    the selection (``select_model``), the gather, conflicts by sorting the
+    lanes' (rkey, not a candidate) keys (the bitonic network with entries
+    lane | flags << 16 on the radix path, the same total order on the
+    sort path) and comparing sorted neighbours, the stable grouping of the
+    clean lanes by kind, and the release positions."""
+    (tk, sq, safe, time, kind, src, dst, ctx, payload, valid, table_id, res,
+     free_tail) = cols
+    A, cap = tk.shape
+    m = max(min(exec_cap, cap), 1)
+    n_pad = 1 << max((cap - 1).bit_length(), 1)
+    radix = 2 * m <= min(n_pad, RADIX_CAND)
+    idx = select_model(tk, sq, m)
+    rows = np.arange(A)[:, None]
+    es = safe[rows, idx]
+    tb = table_id[rows, idx]
+    rkey = (tb.astype(np.uint32) * np.uint32(n_res)
+            + res[rows, idx].astype(np.uint32))
+    kd = np.clip(kind[rows, idx], 0, n_kinds - 1)
+    cand = es & (tb > 0)
+    fl = es.astype(np.int64) | cand.astype(np.int64) << 1 | kd << 8
+    n = 1 << max(m - 1, 0).bit_length()
+    clean = np.zeros((A, m), bool)
+    for a in range(A):
+        key = rkey[a].astype(np.uint64) << np.uint64(1) | (~cand[a]).astype(
+            np.uint64)
+        ent = np.arange(m) | fl[a] << 16
+        if radix:
+            sk = np.full(n, KEY_MAX, np.uint64)
+            si = np.full(n, T_INF, np.int64)
+            sk[:m], si[:m] = key, ent
+            sk, si = bitonic(sk, si)
+        else:
+            o = np.lexsort((ent, ~cand[a], rkey[a]))
+            sk, si = key[o], ent[o]
+        # past the last lane: a pad (or nothing), never a lane's key
+        sk, si = np.append(sk[:m], KEY_MAX), si[:m]
+        same = np.zeros(m, bool)
+        same[1:] |= sk[1:m] == sk[:m - 1]
+        same[:m] |= sk[1:m + 1] == sk[:m]
+        dirty = (sk[:m] & np.uint64(1) == 0) & same
+        lane, f = si & 0xffff, si >> 16
+        clean[a, lane] = (f & 1).astype(bool) & ~dirty
+    gk = np.where(clean, kd, n_kinds)
+    order = np.argsort(gk, axis=1, kind="stable").astype(np.int32)
+    counts = np.stack([np.bincount(g, minlength=n_kinds + 1)[:n_kinds]
+                       for g in gk]).astype(np.int32)
+    excl = np.cumsum(es, axis=1) - es
+    rel = ((free_tail[:, None].astype(np.int64) + excl) % cap).astype(
+        np.int32)
+    fields = dict(exec_idx=idx, exec_safe=es, time=time[rows, idx],
+                  seq=sq[rows, idx], kind=kind[rows, idx],
+                  src=src[rows, idx], dst=dst[rows, idx],
+                  ctx=ctx[rows, idx], payload=payload[rows, idx],
+                  valid=valid[rows, idx], clean=clean, order=order,
+                  rel_pos=rel)
+    return fields, counts
+
+
+def test_fused_select_flow_equals_plain_fused_select():
+    """The model of the fused kernel's flow equals the port's plain
+    ``fused_select`` (the pairwise conflict count) on every pool of CASES,
+    the radix and the sort path, with the other columns drawn from a seed:
+    conflicts likely (4 tables x 8 resources), unsafe and invalid slots,
+    kinds out of range, NaN payload words compared by bits."""
+    rng = np.random.default_rng(23)
+    n_kinds, n_res = 8, 8
+    for mode, cap, xcap in CASES:
+        tk, sq = pool(mode, cap, rng, m=min(xcap, cap))
+        A = tk.shape[0]
+
+        def ri(lo, hi):
+            return rng.integers(lo, hi, (A, cap)).astype(np.int32)
+
+        payload = rng.standard_normal((A, cap, 2)).astype(np.float32)
+        payload[:, ::5, 1] = np.nan
+        cols = (tk, sq, rng.random((A, cap)) < 0.6, ri(0, 50), ri(-1, 10),
+                ri(0, 16), ri(0, 16), ri(0, 4), payload,
+                rng.random((A, cap)) < 0.8, ri(0, 4), ri(0, 8),
+                rng.integers(0, cap, A).astype(np.int32))
+        got, got_counts = fused_model(cols, xcap, n_kinds, n_res)
+        want, want_counts = ref.fused_select(
+            *(torch.from_numpy(np.ascontiguousarray(c)) for c in cols), xcap,
+            n_kinds=n_kinds, n_res=n_res)
+        msg = f"{mode} cap={cap} m={xcap}"
+        np.testing.assert_array_equal(got_counts, want_counts.numpy(),
+                                      err_msg=msg)
+        for name in want._fields:
+            w = getattr(want, name).numpy()
+            g = np.asarray(got[name])
+            if w.dtype == np.float32:
+                w, g = w.view(np.int32), g.view(np.int32)
+            np.testing.assert_array_equal(g, w, err_msg=f"{msg} {name}")

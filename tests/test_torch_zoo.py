@@ -56,7 +56,8 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
     for name, fns in (("flash_attention", ["launch_flash_attention"]),
                       ("rwkv6_scan", ["launch_gla_scan", "gla_smem_bytes",
-                                      "gla_max_smem"])):
+                                      "gla_max_smem", "gla_tc_smem_bytes",
+                                      "gla_tc_blocks_per_sm"])):
         assert sorted(build._SIGNATURES[name]) == sorted(fns)
         assert (build.CSRC / f"{name}.cu").exists()
     assert flash_attention.LAUNCHES == {"flash_attention": 0}
