@@ -9,8 +9,8 @@ checkout of the repository). Phases, each of which raises on failure:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile each ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
    one nvcc per source, all started together; ptxas' registers and spills
-   of each kernel, and the GLA tensor-core kernel's shared memory and CTAs
-   per SM;
+   of each kernel, the GLA tensor-core kernels' shared memory and CTAs per
+   SM, and the max-min warp kernel's CTAs per SM;
 3. kernels: each of the six window front-end kernels against its plain
    PyTorch version on the card, byte for byte, at the main paths' shapes
    (8 agents; select over pool_cap 4096 -> 256, also 1000 and 16384, on
@@ -20,14 +20,18 @@ checkout of the repository). Phases, each of which raises on failure:
    pool_cap 4096 -> 256, also 1000 and 16384, on the same adversarial pools
    and m = 1, 512, 513 (both sides of the radix/bitonic boundary) and cap;
    ring_slots over a 4096 ring and 4096 rows) and on edge cases; the
-   max-min water-fill bit for bit at tiered_grid's shapes (2048, 8 and 1
-   lanes of 32 flows over 4 links), one lane at every tabled flow-sum
-   order, the 64-pod workload's (256 and 1 lanes of 128 flows over 64
-   links) and edge cases; then each timed with CUDA events (the Python
+   max-min water-fill bit for bit, each call's kernel checked against the
+   dispatch rule (a warp per lane up to 32 flows and 32 links, else a
+   block), at tiered_grid's shapes (2048, 8 and 1 lanes of 32 flows over 4
+   links), both sides of the rule (32 or 33 flows or links, one flow, one
+   link), one lane at every tabled flow-sum order, the 64-pod workload's
+   (256 and 1 lanes of 128 flows over 64 links) and edge cases; then each
+   timed with CUDA events (the Python
    call) and under torch.profiler (the kernel's own device time) against
    the plain version, the bound and, where one exists, a single PyTorch
    call; then trace_rank as the engine calls it (a bool mask through
-   ``ops``) and where its call's host time goes, piece by piece;
+   ``ops``) and where its call's host time goes, piece by piece, and the
+   same for maxmin_rates at (2048, 32, 4);
 3z. the model zoo's kernels against their plain versions on the card, in
    float32 (attention's FFMA kernel) and bfloat16 (its wgmma kernel), at
    the serve path's shapes: flash attention at hymba-1.5b's prefill (4 x 25
@@ -38,9 +42,11 @@ checkout of the repository). Phases, each of which raises on failure:
    error of those against 2e-6 and 2e-2); ``rwkv6_scan`` at rwkv6-7b's
    (4 x 64 heads of 64, S 2048, chunk 64; bfloat16 through the TF32
    tensor-core kernel, float32 through the FFMA one) and ``ssd_scan`` at
-   hymba's SSD
-   (4 x 25 heads, state 16, head 64), both also at S 1000 (the divisor
-   rule's chunk 50); then each timed (CUDA events and device time) against the
+   hymba's SSD (4 x 25 heads, state 16, head 64; bfloat16 through its
+   tensor-core kernel over 16-column slices), both also at S 1000 (the
+   divisor rule's chunk 50), ``ssd_scan`` also at state 64 and at state 24
+   with head 40, and refusing a q that is not 16-byte aligned; then each
+   timed (CUDA events and device time) against the
    plain version, the bound and, for attention,
    ``scaled_dot_product_attention`` with the same mask, with the achieved
    TFLOP/s and share of the bound;
@@ -48,8 +54,9 @@ checkout of the repository). Phases, each of which raises on failure:
    (WLCG's tier shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8
    agents, pool_cap 4096) through ``Engine.run_local`` on the card, with
    every launch count set to 0 before and read after (the flow handlers
-   launch ``maxmin_rates``); no drops; byte-equal to the same run on the
-   CPU; its merged trace equal to the sequential oracle;
+   launch ``maxmin_rates``, every call through its warp kernel); no drops;
+   byte-equal to the same run on the CPU; its merged trace equal to the
+   sequential oracle;
 4b. the fused front end (``fused_select=True``) on the same scenario at the
    same size: byte-equal to the stitched card run of phase 4, its merged
    trace equal to the oracle, no drops, ``fused_select`` and ``ring_slots``
@@ -57,9 +64,10 @@ checkout of the repository). Phases, each of which raises on failure:
    then both paths profiled over 20 windows;
 4c. the workload bridge at full width: ``simulate_training`` of a 64-pod
    cell (128 flow slots over 64 WAN links, one agent; the depth cut to one
-   training step) on the card, ``maxmin_rates`` launched, equal to the CPU
-   run; then ``simulate workload`` on a record written to a temporary
-   directory, ``--device cuda`` equal to ``--device cpu``;
+   training step) on the card, ``maxmin_rates`` launched (its block
+   kernel), equal to the CPU run; then ``simulate workload`` on a record
+   written to a temporary directory, ``--device cuda`` equal to
+   ``--device cpu``;
 5. the normal entry point, ``repro_torch.launch.simulate t0t1`` on the card
    with 1 and 4 agents, and with 4 agents under ``--fused-select``, under
    ``--insert-mode ref --merge-mode dense`` and under ``--adaptive-exec``,
@@ -690,9 +698,17 @@ def maxmin_rounds(inc, bw, active) -> int:
     return total
 
 
+def maxmin_kernel_name(F: int, L: int) -> str:
+    """The kernel the launcher picks for (F, L): a warp per lane up to 32
+    flows and 32 links."""
+    return "maxmin_warp_kernel" if F <= 32 and L <= 32 else "maxmin_kernel"
+
+
 def phase_maxmin(g) -> dict:
-    """The max-min water-fill kernel against its plain version, bit for bit,
-    at the main paths' shapes and edge cases; then timed."""
+    """The max-min water-fill kernels against their plain version, bit for
+    bit, at the main paths' shapes, on both sides of the dispatch rule and
+    at edge cases, each launch counted by the kernel that ran it; then
+    timed, and the wrapper's host time taken apart."""
     import torch
     from repro_torch.kernels import bandwidth_share as bs
     from repro_torch.kernels import ref
@@ -700,17 +716,26 @@ def phase_maxmin(g) -> dict:
     def check(B, F, L, edge=None):
         inc, bw, act = maxmin_inputs(g, B, F, L, edge)
         order = ref.flow_order(F, L, B)
+        bs.reset_launches()
         got = bs.maxmin_rates(inc, bw, act, order)
+        ran = {k: n for k, n in bs.KERNELS.items() if n}
+        if ran != {maxmin_kernel_name(F, L): 1}:
+            raise AssertionError(f"maxmin_rates {(B, F, L)} ran {ran}")
         want = ref.maxmin_rates(inc, bw, act)
         max_err(got.view(torch.int32), want.view(torch.int32))
         print(f"[kernels] maxmin_rates B={B} F={F} L={L} head={order.head}"
               f" chains={order.chains} tail_lanes={order.tail_lanes}"
               f" trailing={order.trailing}"
-              f"{' ' + edge if edge else ''}: equal", flush=True)
+              f"{' ' + edge if edge else ''} ({next(iter(ran))}): equal",
+              flush=True)
         return inc, bw, act
 
-    cases = [(2048, 32, 4), (8, 32, 4), (1, 32, 4), (256, 128, 64),
-             (1, 128, 64), (1, 60, 8), (1, 1, 1), (3, 1, 4)]
+    # tiered_grid's (32, 4) at 2048, 8 and 1 lanes, the warp kernel's edges
+    # (32 flows or links, one flow, one link) and the block kernel's side
+    # (33 flows; the 64-pod workload's (128, 64))
+    cases = [(2048, 32, 4), (8, 32, 4), (1, 32, 4), (64, 32, 32),
+             (64, 1, 32), (64, 32, 1), (64, 33, 4), (64, 32, 33),
+             (256, 128, 64), (1, 128, 64), (1, 60, 8), (1, 1, 1), (3, 1, 4)]
     for F, ranges in sorted(ref._UNBATCHED_ORDER.items()):
         cases += [(1, F, L) for lo, hi, _ in ranges for L in {lo, hi}]
     for B, F, L in cases:
@@ -726,8 +751,9 @@ def phase_maxmin(g) -> dict:
         order = ref.flow_order(F, L, B)
         big = F * L >= 4096
         ms = cuda_ms(lambda: bs.maxmin_rates(inc, bw, act, order))
+        kernel = maxmin_kernel_name(F, L)
         dev_ms = device_ms(lambda: bs.maxmin_rates(inc, bw, act, order),
-                           "maxmin_kernel")
+                           kernel)
         plain_ms = cuda_ms(lambda: ref.maxmin_rates(inc, bw, act),
                            iters=10 if big else 200)
         # inc, bw, active read once, the rates written once; per round two
@@ -736,14 +762,78 @@ def phase_maxmin(g) -> dict:
         bms, by = bound(B * (F * L * 4 + L * 4 + F + F * 4),
                         4 * F * L * maxmin_rounds(inc, bw, act),
                         FP32_OPS_PER_S)
-        print(f"[kernels] maxmin_rates B={B} F={F} L={L}: kernel {ms:.6f} "
-              f"ms (device {dev_ms:.6f} ms), plain {plain_ms:.6f} ms, "
-              f"library None ms, bound {bms:.9f} ms ({by})", flush=True)
+        print(f"[kernels] maxmin_rates B={B} F={F} L={L} ({kernel}): "
+              f"kernel {ms:.6f} ms (device {dev_ms:.6f} ms), plain "
+              f"{plain_ms:.6f} ms, library None ms, bound {bms:.9f} ms "
+              f"({by})", flush=True)
         if not out:
             out = dict(max_abs_err=0, ms=ms, device_ms=dev_ms,
                        plain_ms=plain_ms, library_ms=None, bound_ms=bms,
                        bound_by=by)
+            maxmin_call(bs, inc, bw, act)
     return out
+
+
+def maxmin_call(bs, inc, bw, act) -> None:
+    """Where a ``maxmin_rates`` call's host time goes at tiered_grid's
+    batched shape, piece by piece (the mean ``time.perf_counter`` of each
+    piece alone), beside the whole call and the engine's call through
+    ``ops``."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    B, F, L = inc.shape
+    order = ref.flow_order(F, L, B)
+    lib = build.library("bandwidth_share")
+    out = torch.empty((B, F), dtype=torch.float32, device=inc.device)
+    ptrs = (inc.data_ptr(), bw.data_ptr(), act.data_ptr(), out.data_ptr())
+    stream = torch._C._cuda_getCurrentRawStream(inc.get_device())
+    def as_before():
+        """The call as the wrapper made it before its order check was
+        cached: the order and shared-memory check each call (three ctypes
+        calls) and a torch.cuda.Stream."""
+        for name, x, dt, shape in (("inc", inc, torch.float32, (B, F, L)),
+                                   ("bw", bw, torch.float32, (B, L)),
+                                   ("active", act, torch.bool, (B, F))):
+            bs._check(name, x, dt, shape)
+        if lib.maxmin_smem_bytes(F, L) > lib.maxmin_max_smem():
+            raise AssertionError("maxmin_rates: shared memory")
+        packed = bs._pack_order(order, F, lib.maxmin_max_order_blocks())
+        o = torch.empty((B, F), dtype=torch.float32, device=inc.device)
+        return lib.launch_maxmin_rates(
+            inc.data_ptr(), bw.data_ptr(), act.data_ptr(), o.data_ptr(), B,
+            F, L, order.head, packed, order.chains, order.tail_lanes,
+            order.trailing, torch.cuda.current_stream().cuda_stream)
+
+    pieces = {
+        "checks (3 tensors)": lambda: (bs._check("inc", inc, torch.float32,
+                                                 (B, F, L)),
+                                       bs._check("bw", bw, torch.float32,
+                                                 (B, L)),
+                                       bs._check("active", act, torch.bool,
+                                                 (B, F))),
+        "plan (cached order check)": lambda: bs._plan(F, L, order),
+        "order check as before (3 ctypes calls)": lambda: (
+            lib.maxmin_smem_bytes(F, L) > lib.maxmin_max_smem(),
+            bs._pack_order(order, F, lib.maxmin_max_order_blocks())),
+        "allocation": lambda: torch.empty((B, F), dtype=torch.float32,
+                                          device=inc.device),
+        "stream (raw handle)":
+            lambda: torch._C._cuda_getCurrentRawStream(inc.get_device()),
+        "stream (torch.cuda.current_stream, as before)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "data_ptr x4": lambda: (inc.data_ptr(), bw.data_ptr(),
+                                act.data_ptr(), out.data_ptr()),
+        "ctypes call (the launch)": lambda: lib.launch_maxmin_rates(
+            *ptrs, B, F, L, 0, 0, 1, 1, 0, stream),
+        "whole: bs.maxmin_rates": lambda: bs.maxmin_rates(inc, bw, act,
+                                                          order),
+        "whole: the call as before": as_before,
+        "whole: ops.maxmin_rates, the engine's": lambda: ops.maxmin_rates(
+            inc, bw, act),
+    }
+    for what, fn in pieces.items():
+        print(f"[kernels] maxmin_rates call path (2048, 32, 4): {what}: "
+              f"{host_us(fn):.3f} us host", flush=True)
 
 
 # --------------------------------------------------------------- phase 4c
@@ -781,6 +871,7 @@ def phase_workload(card: str) -> dict:
           f"launches {ran} ({card})", flush=True)
     if ran["maxmin_rates"] == 0:
         raise AssertionError("maxmin_rates never launched at 64 pods")
+    maxmin_routes("64 pods", ran, "maxmin_kernel")
     t0 = time.perf_counter()
     st_cpu = Engine(*scen, device="cpu").run_local(max_windows=200_000)
     want = wl.summarize(cell, st_cpu)
@@ -858,7 +949,22 @@ def run_tiered(card: str, fused: bool):
     if ran["maxmin_rates"] == 0:
         raise AssertionError(f"maxmin_rates never launched on the {label} "
                              f"path")
+    maxmin_routes(label, ran, "maxmin_warp_kernel")
     return st, ran, dict(windows=windows, events=events, wall=wall)
+
+
+def maxmin_routes(label: str, ran: dict, kernel: str) -> dict:
+    """The run's ``maxmin_rates`` launches by the kernel that ran them:
+    all of them through ``kernel``."""
+    from repro_torch.kernels import bandwidth_share as bs
+    routes = dict(bs.KERNELS)
+    if routes[kernel] != ran["maxmin_rates"] or sum(routes.values()) != \
+            ran["maxmin_rates"]:
+        raise AssertionError(f"{label}: maxmin_rates launches {routes}, "
+                             f"want all {ran['maxmin_rates']} in {kernel}")
+    print(f"[maxmin] {label}: all {ran['maxmin_rates']} maxmin_rates "
+          f"launches ran {kernel} ({routes})", flush=True)
+    return routes
 
 
 def phase_fused_path(card: str, stitched) -> dict:
@@ -1045,8 +1151,10 @@ def gla_flops(s: int, c: int, dk: int, dv: int, mode: str,
     return per_chunk * (s // c)
 
 
-# the kernel each (mode, dtype) runs: bf16 mode k on the tensor cores
-GLA_KERNEL = {("k", "bfloat16"): "rwkv6_tc_kernel"}
+# the kernel each (mode, dtype) runs: bf16 on the tensor cores, float32
+# gla_kernel
+GLA_KERNEL = {("k", "bfloat16"): "rwkv6_tc_kernel",
+              ("v", "bfloat16"): "ssd_tc_kernel"}
 
 
 def phase_zoo_kernels() -> dict:
@@ -1114,10 +1222,13 @@ def phase_zoo_kernels() -> dict:
           f"{cross_err['bfloat16']:.3e} (tolerance 2e-2)", flush=True)
     # (BH, S, dk, dv, chunk, mode): rwkv6-7b's time mix and hymba's SSD at
     # the serve batch; S 1000 takes the divisor rule's chunk 50; the smoke
-    # configs' widths
+    # configs' widths; the SSD kernel's edges: dk 64 (its largest state),
+    # and dk 24 with dv 40 (a state block half padded, a last slice of 8
+    # columns) at chunk 40
     gla_cases = [(4 * 64, 2048, 64, 64, 64, "k"), (4 * 25, 2048, 16, 64, 64, "v"),
                  (2 * 64, 1000, 64, 64, 50, "k"), (2 * 25, 1000, 16, 64, 50, "v"),
-                 (8, 48, 16, 16, 16, "k"), (8, 32, 8, 16, 16, "v")]
+                 (8, 48, 16, 16, 16, "k"), (8, 32, 8, 16, 16, "v"),
+                 (16, 512, 64, 64, 64, "v"), (8, 200, 24, 40, 40, "v")]
     main_gla = {}
     for bh, S, dk, dv, chunk, mode in gla_cases:
         name = "rwkv6_scan" if mode == "k" else "ssd_scan"
@@ -1141,6 +1252,7 @@ def phase_zoo_kernels() -> dict:
             if name not in main_gla and dt == "bfloat16":
                 main_gla[name] = (q, k, v, w, u, mode, chunk)
                 err[name] = e
+    ssd_refuses_unaligned(gla, main_gla["ssd_scan"])
 
     out = {}
     fq, fk, fv, B, H, KV, S, D, win = main_fa
@@ -1166,7 +1278,7 @@ def phase_zoo_kernels() -> dict:
         bh, S, dk = q.shape
         dv = v.shape[-1]
         kernel = GLA_KERNEL.get((mode, "bfloat16"), "gla_kernel")
-        tc = kernel == "rwkv6_tc_kernel"
+        tc = kernel != "gla_kernel"
         rows[name] = dict(
             fn=lambda a=(q, k, v, w, u, mode, chunk): gla.gla_scan(
                 *a[:5], mode=a[5], chunk=a[6]),
@@ -1199,6 +1311,38 @@ def phase_zoo_kernels() -> dict:
               f"{r['ops'] / dev_ms / 1e9:.1f} TFLOP/s, {bms / dev_ms:.4f} of "
               f"the bound", flush=True)
     return out
+
+
+def ssd_refuses_unaligned(gla, args) -> None:
+    """The bf16 SSD kernel copies 16 B a thread: a q that is not 16-byte
+    aligned is refused by the wrapper and by the launcher, never run."""
+    import torch
+    from repro_torch.kernels import build
+    q, k, v, w, _u, mode, chunk = args
+    bh, S, dk = q.shape
+    dv = v.shape[-1]
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    qm = buf[1:].view(q.shape)
+    qm.copy_(q)
+    try:
+        gla.gla_scan(qm, k, v, w, mode=mode, chunk=chunk)
+    except ValueError as e:
+        if "16-byte" not in str(e):
+            raise
+    else:
+        raise AssertionError("ssd_scan ran a q that is not 16-byte aligned")
+    out = torch.empty_like(v)
+    st = torch.empty((bh, dk, dv), dtype=torch.float32, device=q.device)
+    err = build.library("rwkv6_scan").launch_gla_scan(
+        qm.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), None,
+        out.data_ptr(), st.data_ptr(), bh, S, dk, dv, chunk, 0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if err == 0:
+        raise AssertionError("launch_gla_scan took a q that is not 16-byte "
+                             "aligned")
+    print(f"[zoo kernels] ssd_scan bfloat16 with q 2 B off 16-byte "
+          f"alignment: the wrapper raises, the launcher returns {err}",
+          flush=True)
 
 
 # --------------------------------------------------------------- phase 4z
@@ -1364,7 +1508,7 @@ def serve_full(arch: str, card: str) -> dict:
 
 # the zoo kernels' device op names (attention's two, the scans')
 PORT_KERNELS = ("fa_wgmma_kernel", "fa_ffma_kernel", "gla_kernel",
-                "rwkv6_tc_kernel")
+                "rwkv6_tc_kernel", "ssd_tc_kernel")
 
 
 def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
@@ -1474,6 +1618,13 @@ def main() -> int:
     print(f"[build] rwkv6_tc_kernel: {lib.gla_tc_smem_bytes()} B of dynamic "
           f"shared memory, {lib.gla_tc_blocks_per_sm()} CTAs per SM",
           flush=True)
+    for dk in (16, 64):
+        print(f"[build] ssd_tc_kernel at dk {dk}: "
+              f"{lib.gla_ssd_smem_bytes(dk)} B of dynamic shared memory, "
+              f"{lib.gla_ssd_blocks_per_sm(dk)} CTAs per SM", flush=True)
+    print(f"[build] maxmin_warp_kernel: "
+          f"{build.library('bandwidth_share').maxmin_warp_blocks_per_sm()} "
+          f"CTAs per SM (8 lanes each)", flush=True)
     timings = phase_kernels(es, ref)
     timings["maxmin_rates"] = phase_maxmin(torch.Generator().manual_seed(1))
     # before phase 4's profiles: after a long profiled run, a short one

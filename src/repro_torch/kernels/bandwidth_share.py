@@ -1,13 +1,20 @@
 """Wrapper of the CUDA max-min water-fill (``csrc/bandwidth_share.cu``).
 
 Counterpart of ``repro.kernels.bandwidth_share.maxmin_rates_pallas``, over a
-leading lane dimension. The wrapper checks device, dtype, shape and
-contiguity, allocates the output with ``torch.empty``, launches on the
-current stream, raises if the launch was refused or the shape exceeds what
-the kernel takes, and adds one to :data:`LAUNCHES`. It takes CUDA tensors
-only; ``ops`` sends CPU tensors to the plain version in ``ref``.
+leading lane dimension. Two kernels, picked in the source by (F, L) alone:
+``maxmin_warp_kernel`` (a warp per lane) for F <= 32 and L <= 32, where the
+flow order is always left to right, and ``maxmin_kernel`` (a CTA per lane)
+for the rest. The wrapper checks device, dtype, shape and contiguity, checks
+the flow order and the shared memory once per (F, L, order), allocates the
+output with ``torch.empty``, launches on the current stream, raises if the
+launch was refused or the shape exceeds what the kernel takes, and adds one
+to :data:`LAUNCHES` and to the kernel's entry of :data:`KERNELS`. It takes
+CUDA tensors only; ``ops`` sends CPU tensors to the plain version in
+``ref``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,11 +23,14 @@ from repro_torch.kernels.ref import LEFT_TO_RIGHT, FlowOrder
 
 # The launch count: the proof that a run went through the kernel.
 LAUNCHES = {"maxmin_rates": 0}
+# The same launches by the kernel that ran them.
+KERNELS = {"maxmin_warp_kernel": 0, "maxmin_kernel": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, KERNELS):
+        for k in d:
+            d[k] = 0
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
@@ -51,6 +61,27 @@ def _pack_order(order: FlowOrder, n_flows: int, max_blocks: int) -> int:
     return sum(b << (4 * k) for k, b in enumerate(blocks))
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(n_flows: int, n_links: int, order: FlowOrder) -> tuple[int, str]:
+    """The packed flow order and the kernel for (F, L, order), checked once:
+    the warp kernel sums left to right only, the block kernel's lane must
+    fit one block's shared memory."""
+    lib = build.library("bandwidth_share")
+    if lib.maxmin_takes_warp(n_flows, n_links):
+        if order != LEFT_TO_RIGHT:
+            raise ValueError(f"maxmin_rates: {n_flows} flows over {n_links} "
+                             f"links run the warp kernel, which sums left "
+                             f"to right only, got {order}")
+        return 0, "maxmin_warp_kernel"
+    need = lib.maxmin_smem_bytes(n_flows, n_links)
+    if need > lib.maxmin_max_smem():
+        raise ValueError(
+            f"maxmin_rates: {n_flows} flows over {n_links} links need {need} "
+            f"B of shared memory; one block holds {lib.maxmin_max_smem()}")
+    return (_pack_order(order, n_flows, lib.maxmin_max_order_blocks()),
+            "maxmin_kernel")
+
+
 def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
                  order: FlowOrder = LEFT_TO_RIGHT) -> torch.Tensor:
     """inc (B, F, L) float32 0/1, bw (B, L) float32, active (B, F) bool ->
@@ -65,20 +96,15 @@ def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
     _check("inc", inc, torch.float32, (B, F, L))
     _check("bw", bw, torch.float32, (B, L))
     _check("active", active, torch.bool, (B, F))
-    lib = build.library("bandwidth_share")
-    if lib.maxmin_smem_bytes(F, L) > lib.maxmin_max_smem():
-        raise ValueError(
-            f"maxmin_rates: {F} flows over {L} links need "
-            f"{lib.maxmin_smem_bytes(F, L)} B of shared memory; one block "
-            f"holds {lib.maxmin_max_smem()}")
-    packed = _pack_order(order, F, lib.maxmin_max_order_blocks())
+    packed, kernel = _plan(F, L, order)
     out = torch.empty((B, F), dtype=torch.float32, device=inc.device)
-    err = lib.launch_maxmin_rates(
+    err = build.library("bandwidth_share").launch_maxmin_rates(
         inc.data_ptr(), bw.data_ptr(), active.data_ptr(), out.data_ptr(), B,
         F, L, order.head, packed, order.chains, order.tail_lanes,
-        order.trailing, torch.cuda.current_stream().cuda_stream)
+        order.trailing, torch._C._cuda_getCurrentRawStream(inc.get_device()))
     if err != 0:
         raise RuntimeError(f"maxmin_rates: CUDA launch failed with error "
                            f"{err}")
     LAUNCHES["maxmin_rates"] += 1
+    KERNELS[kernel] += 1
     return out

@@ -39,6 +39,8 @@ _SIGNATURES = {
         "maxmin_smem_bytes": [_I, _I],
         "maxmin_max_smem": [],
         "maxmin_max_order_blocks": [],
+        "maxmin_takes_warp": [_I, _I],
+        "maxmin_warp_blocks_per_sm": [],
     },
     "flash_attention": {
         "launch_flash_attention": [_P] * 4 + [_I] * 8 + [_P],
@@ -49,6 +51,8 @@ _SIGNATURES = {
         "gla_max_smem": [],
         "gla_tc_smem_bytes": [],
         "gla_tc_blocks_per_sm": [],
+        "gla_ssd_smem_bytes": [_I],
+        "gla_ssd_blocks_per_sm": [_I],
     },
 }
 _RESTYPES = {"maxmin_smem_bytes": ctypes.c_longlong,

@@ -3,31 +3,56 @@
 //   maxmin_rates  replaces repro/kernels/bandwidth_share.py::_waterfill_kernel
 //                 (wrapper maxmin_rates_pallas)
 //
-// One CTA per lane: lane b holds F flows over L links, (F, L) 0/1 incidence,
-// (L,) capacities and (F,) active flags, and gets (F,) fair rates. The lane's
-// incidence lives in shared memory (row stride L or L + 1, odd, so the
-// per-flow pass over links is free of bank conflicts), and the L rounds of
-// progressive filling run inside the kernel: per link the count of unfrozen
-// flows and the sum of frozen rates (one thread per link), a block min for
-// the level, then per flow the freeze (one thread per flow). A round that
-// freezes nothing leaves the state as it was, so every later round would too:
-// the loop stops there, which gives the same bits as running all L rounds.
+// Two kernels, picked by (F, L) alone:
+//   - maxmin_warp_kernel for F <= 32 and L <= 32 (tiered_grid's (32, 4)):
+//     one warp per lane, 8 lanes a CTA, no block barrier;
+//   - maxmin_kernel for the rest (the one-lane tabled orders, F >= 44, and
+//     the 64-pod workload's (128, 64)): one CTA per lane.
+// Each lane b holds F flows over L links, (F, L) 0/1 incidence, (L,)
+// capacities and (F,) active flags, and gets (F,) fair rates. The L rounds
+// of progressive filling run inside the kernel: per link the count of
+// unfrozen flows and the sum of frozen rates, the min over links (the
+// level), then per flow the freeze. A round that freezes nothing leaves the
+// state as it was, so every later round would too: the loop stops there,
+// which gives the same bits as running all L rounds.
 //
-// What bounds it on this card: a call moves 4 * (F * L + L + F) + F bytes per
-// lane and does about 4 * F * L float operations per round, so at the main
-// path's shapes (F <= 128, L <= 64) it is bound by latency: the rounds' chain
-// of barriers and each link's serial sum over flows.
+// maxmin_warp_kernel: thread x of a warp is flow x and link x. The lane's
+// incidence is read once, coalesced, into the warp's slice of shared
+// memory; thread x keeps column x (link x's flows) in registers, the bits
+// of its nonzero entries, and the bits of row x (flow x's links, by 32
+// ballots). A round is then: the unfrozen flows' bits by one ballot, each
+// link's count a __popc of them and its column's bits (exact: the
+// incidence is 0/1); the frozen rates staged in the warp's slice of shared
+// memory, and thread l's serial sum over them; the fair share; the level a
+// butterfly min read from thread 0 (as maxmin_kernel's block min, so even
+// a +0/-0 tie gives the same bits); the bottleneck links' bits by a
+// ballot, each flow's freeze an AND with its row's bits; __any_sync ends
+// the loop. Only __syncwarp orders the shared memory.
+//
+// maxmin_kernel: the lane's incidence in shared memory (row stride L or
+// L + 1, odd, so the per-flow pass over links is free of bank conflicts);
+// per link the count and the sum (one thread per link), a block min for
+// the level, then per flow the freeze (one thread per flow).
+//
+// What bounds them on this card: a call moves 4 * (F * L + L + F) + F
+// bytes per lane and does about 4 * F * L float operations per round
+// (0.000421 ms of bytes at 2048 lanes of (32, 4)), so at the main path's
+// shapes (F <= 128, L <= 64) they are bound by latency: the launch, the
+// rounds' dependent chain (each link's serial sum over flows) and, in
+// maxmin_kernel, the barriers of each round.
 //
 // Bits: the result equals the plain version (kernels/ref.py::maxmin_rates)
 // bit for bit. The per-link sum of frozen rates runs in the plain version's
 // order, which the host passes (kernels/ref.py::FlowOrder): eight lane
 // accumulators over a head of V flows in a given block order, added by
 // halves, then the other flows in 1, 2, 4 or 8 interleaved sums, then the
-// last T flows one at a time (V = 0: left to right). Every add, multiply and
-// divide is an IEEE round-to-nearest intrinsic, so nothing is contracted into
-// a fused multiply-add; the constants are float literals, so no comparison is
-// promoted to double. The unfrozen counts are sums of 0/1 values, exact in
-// any order. The min propagates NaN as torch.amin does.
+// last T flows one at a time (V = 0: left to right). For F <= 32 the order
+// is always left to right (ref.flow_order: the tabled orders start at 44
+// flows), and the warp kernel takes no other. Every add, multiply and
+// divide is an IEEE round-to-nearest intrinsic, so nothing is contracted
+// into a fused multiply-add; the constants are float literals, so no
+// comparison is promoted to double. The unfrozen counts are sums of 0/1
+// values, exact in any order. The min propagates NaN as torch.amin does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +66,8 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ORDER_BLOCKS = 16;   // 4 bits per block index in a u64
 constexpr int MAX_SMEM = 232448;       // one block's shared memory on H100
+constexpr int WARP_MAX = 32;           // flows and links the warp kernel takes
+constexpr int WARP_LANES = 8;          // lanes (warps) a CTA of the warp kernel
 
 __host__ __device__ int row_stride(int L) { return L | 1; }
 
@@ -195,6 +222,86 @@ maxmin_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
     g_out[f] = s_act[f] ? s_rate[f] : 0.f;
 }
 
+__global__ void __launch_bounds__(32 * WARP_LANES)
+maxmin_warp_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
+                   const uint8_t* __restrict__ active,
+                   float* __restrict__ out, int B, int F, int L) {
+  __shared__ float s_inc[WARP_LANES][WARP_MAX * WARP_MAX];
+  __shared__ float s_rf[WARP_LANES][32];
+  const unsigned FULL = 0xffffffffu;
+  const int wl = threadIdx.x >> 5, x = threadIdx.x & 31;
+  const size_t b = (size_t)blockIdx.x * WARP_LANES + wl;
+  if (b >= (size_t)B) return;   // a whole warp: no barrier below
+  float* my_inc = s_inc[wl];
+  float* my_rf = s_rf[wl];
+
+  const float* g_inc = inc + b * F * L;
+  for (int i = x; i < F * L; i += 32) my_inc[i] = g_inc[i];
+  const bool act = x < F && active[b * F + x] != 0;
+  const unsigned act_bits = __ballot_sync(FULL, act);
+  const float bwl = x < L ? bw[b * L + x] : 0.f;
+  __syncwarp();
+
+  // link x: its column of the incidence (times the active flags) and the
+  // bits of its nonzero entries; flow x: the bits of its row
+  float col[WARP_MAX];
+  unsigned colbits = 0u;
+#pragma unroll
+  for (int f = 0; f < WARP_MAX; ++f) {
+    col[f] = (f < F && x < L)
+        ? __fmul_rn(my_inc[f * L + x], (act_bits >> f) & 1u ? 1.f : 0.f)
+        : 0.f;
+    colbits |= (col[f] > 0.f ? 1u : 0u) << f;
+  }
+  unsigned rowbits = 0u;
+#pragma unroll
+  for (int f = 0; f < WARP_MAX; ++f) {
+    const unsigned r = __ballot_sync(FULL, (colbits >> f) & 1u);
+    if (x == f) rowbits = r;
+  }
+
+  float rate = 0.f;
+  bool frozen = !act;
+  for (int round = 0; round < L; ++round) {
+    const bool unf = act && !frozen;
+    const unsigned unf_bits = __ballot_sync(FULL, unf);
+    my_rf[x] = __fmul_rn(rate, frozen ? 1.f : 0.f);
+    __syncwarp();
+    // per link: unfrozen flows, frozen rates left to right, fair share
+    float fair = INFINITY;
+    if (x < L) {
+      const float n_unf = (float)__popc(unf_bits & colbits);
+      float used = __fmul_rn(col[0], my_rf[0]);
+#pragma unroll
+      for (int f = 1; f < WARP_MAX; ++f)
+        if (f < F) used = __fadd_rn(used, __fmul_rn(col[f], my_rf[f]));
+      float resid = __fsub_rn(bwl, used);
+      resid = resid < 0.f ? 0.f : resid;
+      fair = n_unf > 0.f ? __fdiv_rn(resid, n_unf < 1.f ? 1.f : n_unf) : BIG;
+      if (bwl <= 0.f && n_unf > 0.f) fair = 0.f;
+    }
+    __syncwarp();   // the frozen rates are read before the next round's
+    // the level: thread 0's butterfly min, as maxmin_kernel's
+    float level = fair;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      level = min_nan(level, __shfl_xor_sync(FULL, level, off));
+    level = __shfl_sync(FULL, level, 0);
+    const float thresh = __fadd_rn(level, EPS);
+    // per flow: freeze the unfrozen flows that cross a bottleneck link
+    const unsigned bottleneck = __ballot_sync(FULL, x < L && fair <= thresh);
+    const bool newly = unf && (rowbits & bottleneck) != 0u;
+    if (newly) {
+      rate = level;
+      frozen = true;
+    }
+    if (!__any_sync(FULL, newly)) break;
+  }
+  if (x < F) out[b * F + x] = act ? rate : 0.f;
+}
+
+bool takes_warp(int F, int L) { return F <= WARP_MAX && L <= WARP_MAX; }
+
 }  // namespace
 
 extern "C" {
@@ -209,11 +316,27 @@ int maxmin_max_smem() { return MAX_SMEM; }
 
 int maxmin_max_order_blocks() { return MAX_ORDER_BLOCKS; }
 
+// 1 if (F, L) runs maxmin_warp_kernel (which sums left to right only),
+// 0 if maxmin_kernel.
+int maxmin_takes_warp(int n_flows, int n_links) {
+  return takes_warp(n_flows, n_links) ? 1 : 0;
+}
+
+// maxmin_warp_kernel's resident CTAs per SM.
+int maxmin_warp_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, maxmin_warp_kernel, 32 * WARP_LANES, 0) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 // inc (B, F, L) f32, bw (B, L) f32, active (B, F) bool (one byte) -> out
 // (B, F) f32. (n_head, order, chains, tail_lanes, trailing): the flow-sum
 // order of kernels/ref.py::FlowOrder, n_head a multiple of 8 up to 8 *
 // MAX_ORDER_BLOCKS (0: left to right), order's 4-bit field k the block
-// summed k-th.
+// summed k-th. F <= 32 and L <= 32 run maxmin_warp_kernel and take left to
+// right only; the rest run maxmin_kernel.
 int launch_maxmin_rates(const float* inc, const float* bw,
                         const uint8_t* active, float* out, int n_lanes,
                         int n_flows, int n_links, int n_head,
@@ -231,6 +354,13 @@ int launch_maxmin_rates(const float* inc, const float* bw,
        (tail < tail_lanes || tail % tail_lanes != 0 || n_head == 0)) ||
       (n_head == 0 && (chains != 1 || trailing != 0)) || trailing < 0)
     return (int)cudaErrorInvalidValue;
+  if (takes_warp(n_flows, n_links)) {
+    if (n_head != 0) return (int)cudaErrorInvalidValue;
+    const int n_cta = (n_lanes + WARP_LANES - 1) / WARP_LANES;
+    maxmin_warp_kernel<<<n_cta, 32 * WARP_LANES, 0, (cudaStream_t)stream>>>(
+        inc, bw, active, out, n_lanes, n_flows, n_links);
+    return (int)cudaGetLastError();
+  }
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -2,15 +2,16 @@
 
 Counterpart of ``repro.kernels.rwkv6_scan.gla_pallas``: mode "k" is the
 RWKV6 time mix (counted as ``rwkv6_scan``), mode "v" the SSD scan of
-``ssm_scan`` (counted as ``ssd_scan``). bfloat16 in mode "k" runs the
-tensor-core kernel (TF32 products, one 64-wide tile: dk and dv multiples of
-8 up to 64, a chunk up to 64, inputs 16-byte aligned); float32 and mode "v"
-run the FFMA kernel. The wrapper checks device, dtype, shape, contiguity
-and what the kernel takes, allocates the outputs with ``torch.empty``,
-launches on the current stream, raises if the launch was refused or the
-shape needs more shared memory than a block has, and adds one to the mode's
-entry of :data:`LAUNCHES`. It takes CUDA tensors only; ``ops`` sends CPU
-tensors to the plain version in ``ref``.
+``ssm_scan`` (counted as ``ssd_scan``). bfloat16 runs a tensor-core kernel
+(TF32 products): in mode "k" one 64-wide tile (dk and dv multiples of 8 up
+to 64), in mode "v" one CTA per 16 columns of v (dk a multiple of 8 up to
+64, dv a multiple of 8); both take a chunk up to 64 and inputs 16-byte
+aligned. float32 runs the FFMA kernel. The wrapper checks device, dtype,
+shape, contiguity and what the kernel takes, allocates the outputs with
+``torch.empty``, launches on the current stream, raises if the launch was
+refused or the shape needs more shared memory than a block has, and adds
+one to the mode's entry of :data:`LAUNCHES`. It takes CUDA tensors only;
+``ops`` sends CPU tensors to the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from repro_torch.kernels import build
 LAUNCHES = {"rwkv6_scan": 0, "ssd_scan": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core kernel's tile: dk, dv and the chunk pad to it
+# the tensor-core kernels' tile: the chunk and dk (and dv in mode "k") pad
+# to it
 TC_TILE = 64
 
 
@@ -39,15 +41,19 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
                          f"{tuple(x.shape)} on {x.device}")
 
 
-def _check_tc(q, k, v, w, dk: int, dv: int, c: int) -> None:
-    """What the tensor-core kernel takes (bfloat16, mode "k")."""
-    if dk % 8 or dv % 8 or max(dk, dv, c) > TC_TILE:
-        raise ValueError(f"gla_scan: bfloat16 mode 'k' takes dk and dv "
-                         f"multiples of 8 up to {TC_TILE} and a chunk up to "
-                         f"{TC_TILE}, got dk {dk}, dv {dv}, chunk {c}")
+def _check_tc(q, k, v, w, dk: int, dv: int, c: int, mode: str) -> None:
+    """What the tensor-core kernels take (bfloat16): mode "k" one tile of
+    dk and dv, mode "v" dk up to the tile and dv in slices."""
+    top = max(dk, dv) if mode == "k" else dk
+    if dk % 8 or dv % 8 or max(top, c) > TC_TILE:
+        what = "dk and dv" if mode == "k" else "dk"
+        raise ValueError(f"gla_scan: bfloat16 mode {mode!r} takes dk and dv "
+                         f"multiples of 8, {what} up to {TC_TILE}, and a "
+                         f"chunk up to {TC_TILE}; got dk {dk}, dv {dv}, "
+                         f"chunk {c}")
     if any(x.data_ptr() % 16 for x in (q, k, v, w)):
-        raise ValueError("gla_scan: bfloat16 mode 'k' takes q, k, v and w "
-                         "16-byte aligned")
+        raise ValueError(f"gla_scan: bfloat16 mode {mode!r} takes q, k, v "
+                         f"and w 16-byte aligned")
 
 
 def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,14 +85,15 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(bh, s, dk, dv) < 1 or c < 1 or s % c:
         raise ValueError(f"gla_scan: chunk {chunk} does not divide the "
                          f"length of {tuple(q.shape)}")
-    if mode == "k" and q.dtype == torch.bfloat16:
-        _check_tc(q, k, v, w, dk, dv, c)
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v, w, dk, dv, c, mode)
     lib = build.library("rwkv6_scan")
-    need = lib.gla_smem_bytes(dk, dv, c, int(mode == "k"))
-    if need > lib.gla_max_smem():
-        raise ValueError(f"gla_scan: dk {dk}, dv {dv}, chunk {c} need {need} "
-                         f"B of shared memory; one block holds "
-                         f"{lib.gla_max_smem()}")
+    if q.dtype == torch.float32:
+        need = lib.gla_smem_bytes(dk, dv, c, int(mode == "k"))
+        if need > lib.gla_max_smem():
+            raise ValueError(f"gla_scan: dk {dk}, dv {dv}, chunk {c} need "
+                             f"{need} B of shared memory; one block holds "
+                             f"{lib.gla_max_smem()}")
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     state = torch.empty((bh, dk, dv), dtype=torch.float32, device=q.device)
     err = lib.launch_gla_scan(

@@ -39,26 +39,26 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.double(), b.double()).float()
 
 
-def decay_scan(lw: torch.Tensor) -> torch.Tensor:
+def decay_scan(lw: torch.Tensor, seg_rows: int = SEG) -> torch.Tensor:
     """Inclusive cumulative sum over the chunk's rows (dim 1) in the
-    kernel's order: each segment of 16 rows summed in order, the earlier
-    segments' totals added first, then the segment's rows."""
+    kernel's order: each segment of ``seg_rows`` rows summed in order, the
+    earlier segments' totals added first, then the segment's rows."""
     bh, c, d = lw.shape
-    n_seg = -(-c // SEG)
-    pad = torch.zeros((bh, n_seg * SEG - c, d))
-    seg = torch.cat([lw, pad], 1).view(bh, n_seg, SEG, d)
+    n_seg = -(-c // seg_rows)
+    pad = torch.zeros((bh, n_seg * seg_rows - c, d))
+    seg = torch.cat([lw, pad], 1).view(bh, n_seg, seg_rows, d)
     tot = torch.zeros((bh, n_seg, d))
-    for r in range(SEG):
+    for r in range(seg_rows):
         tot = tot + seg[:, :, r]
     out = torch.empty_like(seg)
     for s in range(n_seg):
         cum = torch.zeros((bh, d))
         for s2 in range(s):
             cum = cum + tot[:, s2]
-        for r in range(SEG):
+        for r in range(seg_rows):
             cum = cum + seg[:, s, r]
             out[:, s, r] = cum
-    return out.view(bh, n_seg * SEG, d)[:, :c]
+    return out.view(bh, n_seg * seg_rows, d)[:, :c]
 
 
 def gla_tc_model(q, k, v, w, u, chunk: int, split: bool = True):

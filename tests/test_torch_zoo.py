@@ -57,7 +57,9 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     for name, fns in (("flash_attention", ["launch_flash_attention"]),
                       ("rwkv6_scan", ["launch_gla_scan", "gla_smem_bytes",
                                       "gla_max_smem", "gla_tc_smem_bytes",
-                                      "gla_tc_blocks_per_sm"])):
+                                      "gla_tc_blocks_per_sm",
+                                      "gla_ssd_smem_bytes",
+                                      "gla_ssd_blocks_per_sm"])):
         assert sorted(build._SIGNATURES[name]) == sorted(fns)
         assert (build.CSRC / f"{name}.cu").exists()
     assert flash_attention.LAUNCHES == {"flash_attention": 0}
