@@ -9,7 +9,8 @@ checkout of the repository). Phases, each of which raises on failure:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile each ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
    one nvcc per source, all started together; ptxas' registers and spills
-   of each kernel, the GLA tensor-core kernels' shared memory and CTAs per
+   of each kernel (group_by_kind's and ring_slots' on lines of their own),
+   the GLA tensor-core kernels' shared memory and CTAs per
    SM, and the max-min warp kernel's CTAs per SM;
 3. kernels: each of the six window front-end kernels against its plain
    PyTorch version on the card, byte for byte, at the main paths' shapes
@@ -19,7 +20,10 @@ checkout of the repository). Phases, each of which raises on failure:
    uint8 masks; route over 4096 rows with 9 buckets; fused_select over
    pool_cap 4096 -> 256, also 1000 and 16384, on the same adversarial pools
    and m = 1, 512, 513 (both sides of the radix/bitonic boundary) and cap;
-   ring_slots over a 4096 ring and 4096 rows) and on edge cases; the
+   ring_slots over a 4096 ring and 4096 rows) and on edge cases (group at
+   m from 1 to 4096, 1, 8 and 32 kinds, bool, uint8 and int32 masks; ring
+   at n from 1 to 12289, masks 0-3 bytes off a word, heads near 2^31 - 1
+   over a 4096 and a 3001 ring); the
    max-min water-fill bit for bit, each call's kernel checked against the
    dispatch rule (a warp per lane up to 32 flows and 32 links, else a
    block), at tiered_grid's shapes (2048, 8 and 1 lanes of 32 flows over 4
@@ -29,9 +33,12 @@ checkout of the repository). Phases, each of which raises on failure:
    timed with CUDA events (the Python
    call) and under torch.profiler (the kernel's own device time) against
    the plain version, the bound and, where one exists, a single PyTorch
-   call; then trace_rank as the engine calls it (a bool mask through
-   ``ops``) and where its call's host time goes, piece by piece, and the
-   same for maxmin_rates at (2048, 32, 4);
+   call (group_by_kind's row is the engine's call, ``ops`` on the bool
+   mask); then trace_rank as the engine calls it (a bool mask through
+   ``ops``) and where its call's host time goes, piece by piece, the same
+   for group_by_kind and ring_slots (each against its former call path in
+   turns) and for
+   maxmin_rates at (2048, 32, 4);
 3z. the model zoo's kernels against their plain versions on the card, in
    float32 (attention's FFMA kernel) and bfloat16 (its wgmma kernel), at
    the serve path's shapes: flash attention at hymba-1.5b's prefill (4 x 25
@@ -382,7 +389,11 @@ def phase_kernels(es, ref) -> dict:
         print(f"[kernels] route_rank n=4096 buckets=9 {mode}: equal",
               flush=True)
 
+    err["group_by_kind"] = max(err["group_by_kind"],
+                               check_group_by_kind(es, ops, ref, ri))
     err["ring_slots"] = check_ring_slots(es, ref, ri)
+    err["ring_slots"] = max(err["ring_slots"],
+                            check_ring_edges(es, ops, ref, ri))
     err["fused_select"] = check_fused_select(es, ref, ri, g)
 
     # timing at the main path's shapes
@@ -390,6 +401,7 @@ def phase_kernels(es, ref) -> dict:
     tk = torch.where(ri(0, 4, (A, cap)) == 0, T_INF, ri(0, 64, (A, cap)))
     sq = ri(0, 1 << 20, (A, cap))
     kd, ac = ri(0, nk, (A, m)), ri(0, 2, (A, m))
+    acb = ac.bool()
     mk = ri(0, 2, (A, m))
     dd = ri(0, nb, (A, n_emit))
     key = torch.where(ac.bool(), kd, nk)
@@ -435,11 +447,14 @@ def phase_kernels(es, ref) -> dict:
             # the ring), the head, the mask and the slots
             bytes=(4 * int(want.sum(1).clamp(max=cap).sum())
                    + A * (4 + n_emit * 5)), ops=A * n_emit * 2),
+        # the engine's call: ops on int32 kinds and the bool clean mask
         "group_by_kind": dict(
-            fn=lambda: es.group_by_kind(kd, ac, nk),
-            plain=lambda: ref.group_by_kind(kd, ac, nk),
+            fn=lambda: ops.group_by_kind(kd, acb, nk),
+            plain=lambda: ref.group_by_kind(kd, acb, nk),
             lib=lambda: torch.argsort(key, dim=1, stable=True),
-            bytes=A * m * 16 + A * nk * 4, ops=A * m * (nk + 1)),
+            # int32 kinds and a byte a row of the mask read, order and rank
+            # and the counts written
+            bytes=A * m * (4 + 1 + 8) + A * nk * 4, ops=A * m * (nk + 1)),
         "trace_rank": dict(
             fn=lambda: es.trace_rank(mk), plain=lambda: ref.trace_rank(mk),
             lib=lambda: torch.cumsum(mk, dim=1, dtype=torch.int32),
@@ -463,6 +478,8 @@ def phase_kernels(es, ref) -> dict:
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, "
               f"bound {bms:.9f} ms ({by})", flush=True)
     trace_rank_call(es, ops, mk, out["trace_rank"])
+    group_call(es, ops, kd, acb, nk, out["group_by_kind"])
+    ring_call(es, ops, ring, head, want, out["ring_slots"])
     return out
 
 
@@ -480,6 +497,21 @@ def host_us(fn, n: int = 5000) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / n * 1e6
+
+
+def in_turns(label: str, fns: dict, rounds: int = 5) -> dict:
+    """``cuda_ms`` of each function in ``fns`` in turns, ``rounds`` times
+    (the host's time moves between timings); prints and returns the
+    medians."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"[kernels] {label} in turns: " + "; ".join(
+        f"{k} median {med[k]:.6f} ms, rounds {[round(x, 6) for x in v]}"
+        for k, v in times.items()), flush=True)
+    return med
 
 
 def trace_rank_call(es, ops, mk, row: dict) -> None:
@@ -502,22 +534,15 @@ def trace_rank_call(es, ops, mk, row: dict) -> None:
           f"{A}x{n}): {ms:.6f} ms (device {dev_ms:.6f} ms); with the int32 "
           f"copy the port made before: {before_ms:.6f} ms; cumsum of the "
           f"bool mask {lib_ms:.6f} ms", flush=True)
-    # the call against cumsum in turns (the host's time moves between
-    # timings): five rounds of kernel, cumsum for each mask, the medians
-    turns = {"int32": (lambda: es.trace_rank(mk),
-                       lambda: torch.cumsum(mk, dim=1, dtype=torch.int32)),
-             "bool, ops": (lambda: ops.trace_rank(mb),
-                           lambda: torch.cumsum(mb, dim=1,
-                                                dtype=torch.int32))}
-    for what, (fn, lib_fn) in turns.items():
-        ks, cs = [], []
-        for _ in range(5):
-            ks.append(cuda_ms(fn))
-            cs.append(cuda_ms(lib_fn))
-        km, cm = sorted(ks)[2], sorted(cs)[2]
-        print(f"[kernels] trace_rank in turns with cumsum ({what}): median "
-              f"{km:.6f} ms against {cm:.6f} ms ({km / cm:.3f}x); rounds "
-              f"{[round(x, 6) for x in ks]} / {[round(x, 6) for x in cs]}",
+    # the call against cumsum in turns, for each mask
+    for what, x, fn in (("int32", mk, lambda: es.trace_rank(mk)),
+                        ("bool, ops", mb, lambda: ops.trace_rank(mb))):
+        med = in_turns(f"trace_rank ({what}) against cumsum",
+                       {"kernel": fn,
+                        "cumsum": lambda x=x: torch.cumsum(
+                            x, dim=1, dtype=torch.int32)})
+        ratio = med["kernel"] / med["cumsum"]
+        print(f"[kernels] trace_rank ({what}): {ratio:.3f}x cumsum's time",
               flush=True)
     lib = es._lib()
     out = torch.empty_like(mb, dtype=torch.int32)
@@ -542,6 +567,155 @@ def trace_rank_call(es, ops, mk, row: dict) -> None:
     }
     for what, fn in pieces.items():
         print(f"[kernels] trace_rank call path: {what}: "
+              f"{host_us(fn):.3f} us host", flush=True)
+
+
+def group_call(es, ops, kd, acb, nk: int, row: dict) -> None:
+    """group_by_kind beside the engine's call (``row``, ``ops`` on the bool
+    mask): the direct call with a bool and an int32 mask, the former call
+    path (ops' int32 copy of the mask, a check of two tensors, three
+    allocations) around the same kernel, in turns; then where a call's host
+    time goes, piece by piece. Adds the direct call's times to ``row``."""
+    import torch
+    A, m = kd.shape
+    lib = es._lib()
+    ac = acb.to(torch.int32)
+    n_out = 2 * A * m + A * nk
+
+    def as_before():
+        k, a32 = kd.to(torch.int32).contiguous(), acb.to(torch.int32)
+        es._check("group_by_kind", k, a32.contiguous())
+        if not 1 <= nk <= es.MAX_KINDS:
+            raise ValueError(nk)
+        o, r = torch.empty_like(k), torch.empty_like(k)
+        c = torch.empty((A, nk), dtype=torch.int32, device=k.device)
+        es._launch("group_by_kind", lib.launch_group_by_kind, k,
+                   k.data_ptr(), a32.data_ptr(), 4, o.data_ptr(),
+                   r.data_ptr(), c.data_ptr(), A, m, nk)
+        return o, r, c
+
+    direct_ms = cuda_ms(lambda: es.group_by_kind(kd, acb, nk))
+    direct_dev = device_ms(lambda: es.group_by_kind(kd, acb, nk),
+                           "group_by_kind_kernel")
+    int32_ms = cuda_ms(lambda: es.group_by_kind(kd, ac, nk))
+    buf = torch.empty(n_out, dtype=torch.int32, device=kd.device)
+    p, stream = buf.data_ptr(), es._stream(kd)
+    args = (kd.data_ptr(), acb.data_ptr(), 1, p, p + 4 * A * m,
+            p + 8 * A * m, A, m, nk, stream)
+    row.update(direct_ms=direct_ms, direct_device_ms=direct_dev,
+               int32_ms=int32_ms)
+    print(f"[kernels] group_by_kind ({A}x{m}, {nk} kinds): the engine's call "
+          f"(ops, bool mask) {row['ms']:.6f} ms (device "
+          f"{row['device_ms']:.6f} ms); direct, bool mask {direct_ms:.6f} ms "
+          f"(device {direct_dev:.6f} ms); direct, int32 mask {int32_ms:.6f} "
+          f"ms", flush=True)
+    in_turns("group_by_kind, the engine's call against the former call path",
+             {"ops.group_by_kind(bool)": lambda: ops.group_by_kind(kd, acb,
+                                                                   nk),
+              "the former call path": as_before})
+    pieces = {
+        "check (one pass)": lambda: es._check_group(kd, acb, nk),
+        "checks as before (two tensors, n_kinds)": lambda: (
+            es._check("group_by_kind", kd, ac), 1 <= nk <= es.MAX_KINDS),
+        "allocation: new_empty (one buffer)": lambda: kd.new_empty(n_out),
+        "allocation: torch.empty(device=) (one buffer)": lambda: torch.empty(
+            n_out, dtype=torch.int32, device=kd.device),
+        "allocation: empty_like (an (A, m) tensor)":
+            lambda: torch.empty_like(kd),
+        "allocations as before (three)": lambda: (
+            torch.empty_like(kd), torch.empty_like(kd),
+            torch.empty((A, nk), dtype=torch.int32, device=kd.device)),
+        "views: as_strided x3 (the wrapper's)": lambda: (
+            buf.as_strided((A, m), (m, 1)),
+            buf.as_strided((A, m), (m, 1), A * m),
+            buf.as_strided((A, nk), (nk, 1), 2 * A * m)),
+        "views: split_with_sizes, view x3": lambda: [
+            t.view(-1, n) for t, n in zip(
+                buf.split_with_sizes((A * m, A * m, A * nk)), (m, m, nk))],
+        "stream (raw handle)": lambda: es._stream(kd),
+        "data_ptr x3": lambda: (kd.data_ptr(), acb.data_ptr(),
+                                buf.data_ptr()),
+        "ctypes call (the launch)": lambda: lib.launch_group_by_kind(*args),
+        "ops' casts as before (kinds, the mask to int32)": lambda: (
+            kd.to(torch.int32).contiguous(),
+            acb.to(torch.int32).contiguous()),
+        "ops' conversions now (kinds, the bool mask as it is)": lambda: (
+            ops._i32(kd), acb.contiguous()),
+        "whole: es.group_by_kind(bool)": lambda: es.group_by_kind(kd, acb,
+                                                                  nk),
+        "whole: ops.group_by_kind(bool), the engine's":
+            lambda: ops.group_by_kind(kd, acb, nk),
+        "whole: the former call path": as_before,
+    }
+    for what, fn in pieces.items():
+        print(f"[kernels] group_by_kind call path: {what}: "
+              f"{host_us(fn):.3f} us host", flush=True)
+
+
+def ring_call(es, ops, ring, head, want, row: dict) -> None:
+    """ring_slots as the engine calls it (``ops``) against the former call
+    path (three checks, the shape check, ``torch.empty``) around the same
+    kernel, in turns; then where a call's host time goes, piece by
+    piece."""
+    import torch
+    A, cap = ring.shape
+    n = want.shape[1]
+    lib = es._lib()
+    out = torch.empty_like(want, dtype=torch.int32)
+    stream = es._stream(want)
+    ptrs = (ring.data_ptr(), head.data_ptr(), want.data_ptr(),
+            out.data_ptr())
+
+    def checks_before():
+        es._check("ring_slots", ring)
+        es._check("ring_slots", want, dtype=torch.bool)
+        if want.shape[0] != A:
+            raise ValueError(A)
+        es._check_cursor("ring_slots", head, A)
+
+    def as_before():
+        r, h, w = (ring.to(torch.int32).contiguous(),
+                   head.to(torch.int32).contiguous(), want.bool().contiguous())
+        checks_before()
+        o = torch.empty(w.shape, dtype=torch.int32, device=w.device)
+        es._launch("ring_slots", lib.launch_ring_slots, w, r.data_ptr(),
+                   h.data_ptr(), w.data_ptr(), o.data_ptr(), A, cap, n)
+        return o
+
+    ops_ms = cuda_ms(lambda: ops.ring_slots(ring, head, want))
+    row.update(engine_ms=ops_ms)
+    print(f"[kernels] ring_slots ({A}x{n} over a {cap} ring): the engine's "
+          f"call (ops) {ops_ms:.6f} ms; direct {row['ms']:.6f} ms (device "
+          f"{row['device_ms']:.6f} ms)", flush=True)
+    in_turns("ring_slots, the engine's call against the former call path",
+             {"ops.ring_slots": lambda: ops.ring_slots(ring, head, want),
+              "the former call path": as_before})
+    pieces = {
+        "check (one pass)": lambda: es._check_ring(ring, head, want),
+        "checks as before (three, and the shape)": checks_before,
+        "allocation: empty_like": lambda: torch.empty_like(
+            want, dtype=torch.int32),
+        "allocation: new_empty": lambda: want.new_empty(
+            want.shape, dtype=torch.int32),
+        "allocation: torch.empty(device=)": lambda: torch.empty(
+            want.shape, dtype=torch.int32, device=want.device),
+        "stream (raw handle)": lambda: es._stream(want),
+        "data_ptr x4": lambda: (ring.data_ptr(), head.data_ptr(),
+                                want.data_ptr(), out.data_ptr()),
+        "ctypes call (the launch)": lambda: lib.launch_ring_slots(
+            *ptrs, A, cap, n, stream),
+        "ops' conversions as before": lambda: (
+            ring.to(torch.int32).contiguous(),
+            head.to(torch.int32).contiguous(), want.bool().contiguous()),
+        "ops' conversions now": lambda: (ops._i32(ring), ops._i32(head),
+                                         ops._bool(want)),
+        "whole: es.ring_slots": lambda: es.ring_slots(ring, head, want),
+        "whole: ops.ring_slots, the engine's":
+            lambda: ops.ring_slots(ring, head, want),
+        "whole: the former call path": as_before,
+    }
+    for what, fn in pieces.items():
+        print(f"[kernels] ring_slots call path: {what}: "
               f"{host_us(fn):.3f} us host", flush=True)
 
 
@@ -654,6 +828,74 @@ def check_ring_slots(es, ref, ri) -> int:
         print(f"[kernels] ring_slots cap={cap} n={n} head>={head_lo} want "
               f"{mode}: equal", flush=True)
     return 0
+
+
+def check_group_by_kind(es, ops, ref, ri) -> int:
+    """group_by_kind against its plain version on the edge shapes of its
+    design: m from 1 to 4096 (one 32-row step a warp up to 1024, segments of
+    several steps above), 2, 9 and 33 keys, kinds below 0 and at or above
+    n_kinds, every row inactive, one kind only; each with the active mask as
+    bool, uint8 and int32, and through ``ops`` with the bool mask."""
+    import torch
+    A, err = 8, 0
+    for m in (1, 31, 32, 33, 256, 1000, 1024, 1025, 4096):
+        for nk in (1, 8, 32):
+            for mode in ("rand", "inactive", "one_kind"):
+                kd = ri(-3, nk + 3, (A, m))
+                ac = ri(0, 10, (A, m)) < 6
+                if mode == "inactive":
+                    ac = torch.zeros_like(ac)
+                elif mode == "one_kind":
+                    kd, ac = torch.full_like(kd, 3), torch.ones_like(ac)
+                want = ref.group_by_kind(kd, ac, nk)
+                for dt in (torch.bool, torch.uint8, torch.int32):
+                    err = max(err, max_err(es.group_by_kind(kd, ac.to(dt), nk),
+                                           want))
+                err = max(err, max_err(ops.group_by_kind(kd, ac, nk), want))
+            print(f"[kernels] group_by_kind m={m} n_kinds={nk} rand, all "
+                  f"inactive, one kind (bool, uint8, int32 masks; ops bool): "
+                  f"equal", flush=True)
+    return err
+
+
+def check_ring_edges(es, ops, ref, ri) -> int:
+    """ring_slots against its plain version on the edges of its design: n
+    from 1 to 12289 (one to four tiles of 4,096 rows), the mask starting 0
+    to 3 bytes into a word (a view of a larger allocation: read in aligned
+    words, byte loads at the edges, as the wrapper documents), heads near
+    the ring's end, negative, and near 2^31 - 1 (where head + rank steps over
+    the int32 range; over a 3001 ring that moves the floor modulo), want
+    all, none and random; through ``ops`` too."""
+    import torch
+    A, err = 8, 0
+    i32_max = 2**31 - 1
+    dev = ri(0, 1, (1,)).device
+    for cap in (4096, 3001):
+        ring = torch.stack([torch.randperm(cap) for _ in range(A)]).to(
+            torch.int32).to(dev)
+        for n in (1, 3, 4095, 4096, 4097, 12289):
+            for head_lo, head_hi, what in ((cap - 3, cap, "near the end"),
+                                           (-9000, 0, "negative"),
+                                           (i32_max - n, i32_max,
+                                            "near 2^31 - 1")):
+                head = ri(head_lo, head_hi, (A,))
+                for mode in ("all", "none", "rand"):
+                    w = {"all": ri(1, 2, (A, n)), "none": ri(0, 1, (A, n)),
+                         "rand": ri(0, 2, (A, n))}[mode] > 0
+                    want = ref.ring_slots(ring, head, w)
+                    for lead in range(4):
+                        buf = torch.zeros(A * n + lead, dtype=torch.bool,
+                                          device=dev)
+                        wv = buf[lead:].view(A, n)
+                        wv.copy_(w)
+                        err = max(err, max_err(es.ring_slots(ring, head, wv),
+                                               want))
+                    err = max(err, max_err(ops.ring_slots(ring, head, w),
+                                           want))
+            print(f"[kernels] ring_slots cap={cap} n={n} heads near the end, "
+                  f"negative, near 2^31 - 1; want all, none, rand; mask 0-3 B "
+                  f"off a word; ops: equal", flush=True)
+    return err
 
 
 def maxmin_inputs(g, B, F, L, edge=None):
@@ -978,6 +1220,9 @@ def phase_fused_path(card: str, stitched) -> dict:
     for k in ("select_events", "group_by_kind"):
         if ran[k] != 0:
             raise AssertionError(f"{k} launched on the fused path")
+    if ran["ring_slots"] != nums["windows"]:
+        raise AssertionError(f"ring_slots launched {ran['ring_slots']} times "
+                             f"in {nums['windows']} windows")
     state_equal(st, stitched["state"])
     print("[tiered_grid] fused cuda state == stitched cuda state (trace, "
           "counters, world, pool, ring cursors)", flush=True)
@@ -999,6 +1244,9 @@ def phase_main_path(card: str) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    if ran["group_by_kind"] != nums["windows"]:
+        raise AssertionError(f"group_by_kind launched {ran['group_by_kind']}"
+                             f" times in {nums['windows']} windows")
 
     t0 = time.perf_counter()
     st_cpu = Engine(world, own, init_ev, spec, trace_cap=65536,
@@ -1593,6 +1841,23 @@ def phase_serve_entry() -> None:
         torch.cuda.empty_cache()
 
 
+def ptxas_lines(log: str, kernels) -> None:
+    """``ptxas -v``'s registers, shared memory and spills of each instance
+    of the named kernels (the lines after each "Compiling entry function"
+    that names one, up to the next)."""
+    blocks = log.split("Compiling entry function")[1:]
+    for name in kernels:
+        found = [b for b in blocks if name in b.split("\n", 1)[0]]
+        if not found:
+            raise AssertionError(f"ptxas compiled no {name}")
+        for b in found:
+            head, *rest = b.splitlines()
+            facts = [x.split("info    :")[-1].strip() for x in rest
+                     if "Used" in x or "spill" in x]
+            print(f"[build] {name} {head.split(chr(39))[1]}: "
+                  f"{'; '.join(facts)}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1614,6 +1879,8 @@ def main() -> int:
         print("\n".join(f"[build] {line}" for line in info["log"].splitlines()
                         if any(k in line for k in ("registers", "Compiling",
                                                    "spill"))), flush=True)
+    ptxas_lines(build.build_info["event_select"]["log"],
+                ("group_by_kind_kernel", "ring_slots_kernel"))
     lib = build.library("rwkv6_scan")
     print(f"[build] rwkv6_tc_kernel: {lib.gla_tc_smem_bytes()} B of dynamic "
           f"shared memory, {lib.gla_tc_blocks_per_sm()} CTAs per SM",

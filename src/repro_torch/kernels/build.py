@@ -26,7 +26,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "event_select": {
         "launch_select_events": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "launch_group_by_kind": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "launch_group_by_kind": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
         "launch_trace_rank": [_P, _I, _P, _I, _I, _P],
         "launch_route_rank": [_P, _P, _I, _I, _I, _P],
         "launch_ring_slots": [_P, _P, _P, _P, _I, _I, _I, _P],

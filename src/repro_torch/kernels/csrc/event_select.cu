@@ -16,7 +16,8 @@
 // memory or registers, reads each input once and writes each output once,
 // and replaces the TPU kernels' vector-unit workarounds (reshape-and-swap
 // exchanges, chunked one-hot compares and gathers, the O(n^2) predecessor
-// count) with warp ballots, popc, block-wide scans and direct gathers.
+// count) with warp ballots and matches, popc, block-wide scans and direct
+// gathers.
 // select_events and fused_select, which need only the first m of each
 // agent's order, select them by one code (radix_select): a radix pass per
 // key byte, then a sort of only the candidates (at most the power of two
@@ -40,8 +41,9 @@ namespace {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_WARPS = 32;   // 1024 threads
-constexpr int MAX_KEYS = 64;    // group: n_kinds + 1 <= 33; route: A + 1
+constexpr int MAX_KEYS = 64;    // fused group: n_kinds + 1 <= 33; route: A + 1
 constexpr int32_t I32_MAX = 0x7fffffff;
+constexpr int32_t I32_MIN = -I32_MAX - 1;
 constexpr int MAX_SORT_SLOTS = 16384;   // 12 B a slot in one block
 
 __device__ __forceinline__ bool lex_less(int32_t t1, int32_t s1, int32_t i1,
@@ -397,57 +399,107 @@ __device__ int chunk_rank(int key, int n_keys, int* warp_tot, int* carry) {
 }
 
 // ------------------------------------------------------------- group
-// key = clip(kind, 0, n_kinds-1) if active else n_kinds. Pass 1 counts the
-// keys (shared atomics) and scans them into segment starts; pass 2 ranks each
-// row within its key, stable in position, and writes
-// order[start[key] + rank] = i with rank aligned to order.
+// key = clip(kind, 0, n_kinds-1) if active else n_kinds (at most 33 keys).
+// Warp w owns the contiguous segment of `steps` 32-row steps from row
+// 32 * steps * w, so segments are in position order; steps is 1 up to m =
+// blockDim (the main path, m = 256: every key read once, kept in a
+// register). One __syncthreads in all:
+//   1. each warp counts its segment's rows of each key: __match_any_sync on
+//      the key gives a row's peers (rank = peers below its lane), and each
+//      group's lowest lane adds the group's size to the warp's row of cnt
+//      (a warp-private row: no atomics);
+//   2. after the barrier, lane g of every warp reads column g of cnt: the
+//      key's rows in earlier warps and in all, a shuffle scan over the keys
+//      gives the key starts, and the warp writes its row of positions
+//      (start + rows in earlier warps); warp 0 writes the counts;
+//   3. each row goes to its key's next position in its warp, plus its rank
+//      among its peers: order[p] = i, rank[p] = p - start[key].
+// The active mask is read as it comes: int32 or one byte a row.
+constexpr int GROUP_KEYS = 33;   // n_kinds <= 32
+
+template <typename M>
+__device__ __forceinline__ int group_key(const int32_t* kind, const M* active,
+                                         int i, int m, int n_kinds) {
+  if (i >= m) return -1;
+  return active[i] != 0 ? min(max(kind[i], 0), n_kinds - 1) : n_kinds;
+}
+
+template <typename M>
 __global__ void group_by_kind_kernel(const int32_t* __restrict__ kind,
-                                     const int32_t* __restrict__ active,
+                                     const M* __restrict__ active,
                                      int32_t* __restrict__ order,
                                      int32_t* __restrict__ rank_out,
                                      int32_t* __restrict__ counts,
                                      int m, int n_kinds) {
-  __shared__ int warp_tot[MAX_WARPS * MAX_KEYS];
-  __shared__ int cnt[MAX_KEYS];
-  __shared__ int start[MAX_KEYS];
-  __shared__ int carry[MAX_KEYS];
-  const int a = blockIdx.x;
-  const int n_keys = n_kinds + 1;
-  kind += (size_t)a * m;
-  active += (size_t)a * m;
-  order += (size_t)a * m;
-  rank_out += (size_t)a * m;
-  counts += (size_t)a * n_kinds;
+  __shared__ int cnt[MAX_WARPS][GROUP_KEYS];   // a warp's rows of each key
+  __shared__ int pos[MAX_WARPS][GROUP_KEYS];   // its next position of each
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5, n_keys = n_kinds + 1;
+  const size_t a = blockIdx.x;
+  kind += a * m;
+  active += a * m;
+  order += a * m;
+  rank_out += a * m;
+  counts += a * n_kinds;
+  const unsigned lt = (1u << lane) - 1u;
+  const int steps = (m + blockDim.x - 1) / blockDim.x;
+  const int lo = warp * steps * 32 + lane;
 
-  for (int g = threadIdx.x; g < n_keys; g += blockDim.x) {
-    cnt[g] = 0;
-    carry[g] = 0;
+  // 1. counts per warp
+  for (int g = lane; g < n_keys; g += 32) cnt[warp][g] = 0;
+  __syncwarp();
+  int key = -1;
+  unsigned peers = 0;
+  for (int s = 0; s < steps; ++s) {
+    key = group_key(kind, active, lo + 32 * s, m, n_kinds);
+    peers = __match_any_sync(FULL_MASK, key);
+    if (key >= 0 && lane == __ffs(peers) - 1) cnt[warp][key] += __popc(peers);
+    __syncwarp();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int k = active[i] ? min(max(kind[i], 0), n_kinds - 1) : n_kinds;
-    atomicAdd(&cnt[k], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int g = 0; g < n_keys; ++g) {
-      start[g] = acc;
-      acc += cnt[g];
+
+  // 2. lane g: key g (and lane 0 also key 32)
+  int before0 = 0, tot0 = 0, before1 = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    const int c0 = lane < n_keys ? cnt[w][lane] : 0;
+    if (w < warp) {
+      before0 += c0;
+      if (lane + 32 < n_keys) before1 += cnt[w][lane + 32];
     }
+    tot0 += c0;
   }
-  for (int g = threadIdx.x; g < n_kinds; g += blockDim.x) counts[g] = cnt[g];
-  __syncthreads();
+  int incl = tot0;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += y;
+  }
+  const int start0 = incl - tot0;                         // key lane
+  const int start1 = __shfl_sync(FULL_MASK, incl, 31);   // key 32
+  if (lane < n_keys) pos[warp][lane] = start0 + before0;
+  if (lane + 32 < n_keys) pos[warp][lane + 32] = start1 + before1;
+  if (warp == 0 && lane < n_kinds) counts[lane] = tot0;
+  __syncwarp();
 
-  for (int base = 0; base < m; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int k = -1;
-    if (i < m) k = active[i] ? min(max(kind[i], 0), n_kinds - 1) : n_kinds;
-    const int r = chunk_rank(k, n_keys, warp_tot, carry);
-    if (i < m) {
-      const int p = start[k] + r;
+  // 3. placement (steps == 1 keeps the key and peers of step 1)
+  for (int s = 0; s < steps; ++s) {
+    const int i = lo + 32 * s;
+    if (steps > 1) {
+      key = group_key(kind, active, i, m, n_kinds);
+      peers = __match_any_sync(FULL_MASK, key);
+    }
+    const int st_lo = __shfl_sync(FULL_MASK, start0, key & 31);
+    const int start = key < 32 ? st_lo : start1;
+    const int p = key >= 0 ? pos[warp][key] + __popc(peers & lt) : 0;
+    if (s + 1 < steps) {
+      __syncwarp();
+      if (key >= 0 && lane == __ffs(peers) - 1)
+        pos[warp][key] += __popc(peers);
+      __syncwarp();
+    }
+    if (key >= 0) {
       order[p] = i;
-      rank_out[p] = r;
+      rank_out[p] = p - start;
     }
   }
 }
@@ -498,11 +550,15 @@ __device__ int chunk_excl_count(bool w, int* warp_tot, int* carry) {
   return r;
 }
 
-// int32 a + b with two's-complement wrap, then the floor modulo by cap > 0.
-__device__ __forceinline__ int ring_pos(int32_t a, int32_t b, int cap) {
-  const int32_t x = (int32_t)((uint32_t)a + (uint32_t)b);
+// The floor modulo of x by cap > 0.
+__device__ __forceinline__ int floor_mod(int32_t x, int cap) {
   const int r = x % cap;
   return r < 0 ? r + cap : r;
+}
+
+// int32 a + b with two's-complement wrap, then the floor modulo by cap > 0.
+__device__ __forceinline__ int ring_pos(int32_t a, int32_t b, int cap) {
+  return floor_mod((int32_t)((uint32_t)a + (uint32_t)b), cap);
 }
 
 // Exclusive prefix count of the mask (int32, or one byte a row: the
@@ -526,26 +582,104 @@ __global__ void trace_rank_kernel(const M* __restrict__ mask,
 
 // ------------------------------------------------------------- ring slots
 // Free-ring insert slots: out[i] = ring[(head + rank_i) % cap], rank_i the
-// exclusive count of wanted rows before row i. A direct gather replaces the
-// TPU kernel's chunked one-hot selection. Rows that are not wanted get the
-// same formula; the engine drops them.
+// exclusive count of wanted rows before row i (int32 wrap, floor modulo). A
+// direct gather replaces the TPU kernel's chunked one-hot selection. Rows
+// that are not wanted get the same formula; the engine drops them.
+//
+// Each thread owns a group of RING_ROWS = 4 consecutive rows whose mask
+// bytes share one aligned 32-bit word (group k: rows 4k - lead .. 4k - lead
+// + 3, lead the row's byte offset in its word), so a thread reads one word
+// (byte loads only in the first and last group of a row that is not
+// aligned) and counts it by popc. A tile is blockDim groups (4,096 rows at
+// 1,024 threads, the main path): a warp shuffle scan of the counts, one
+// warp's scan of the 32 warp totals in shared memory, one barrier pair; a
+// larger n loops over tiles with a carry (the totals double-buffered, so
+// one pair a tile suffices). The ring position is a floor modulo once a
+// thread, then advances by one a wanted row with a compare for the wrap at
+// cap; where head + rank steps from 2^31 - 1 to -2^31 (int32 overflow) it
+// is worked out again, as the reference computes it. The slots go out as
+// one 16-byte store a thread where aligned.
+constexpr int RING_ROWS = 4;
+
+// Bit 7 of each byte of x that is nonzero (no carry crosses a byte).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+}
+
 __global__ void ring_slots_kernel(const int32_t* __restrict__ ring,
                                   const int32_t* __restrict__ head,
                                   const uint8_t* __restrict__ want,
                                   int32_t* __restrict__ out, int cap, int n) {
-  __shared__ int warp_tot[MAX_WARPS];
-  __shared__ int carry;
-  const int a = blockIdx.x;
-  ring += (size_t)a * cap;
-  want += (size_t)a * n;
-  out += (size_t)a * n;
+  __shared__ int warp_tot[2][MAX_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const size_t a = blockIdx.x;
+  ring += a * cap;
+  want += a * n;
+  out += a * n;
   const int32_t h = head[a];
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int r = chunk_excl_count(i < n && want[i] != 0, warp_tot, &carry);
-    if (i < n) out[i] = ring[ring_pos(h, r, cap)];
+  const int lead = (int)((uintptr_t)want & 3);
+  const int n_groups = (n + lead + RING_ROWS - 1) / RING_ROWS;
+  int carry = 0;
+  for (int base = 0, tile = 0; base < n_groups; base += blockDim.x, ++tile) {
+    const int k = base + threadIdx.x;
+    const int r0 = RING_ROWS * k - lead;
+    const bool whole = r0 >= 0 && r0 + RING_ROWS <= n;
+    uint32_t bits = 0;   // bit 7 of byte j: row r0 + j is wanted
+    if (whole) {
+      bits = nonzero_bytes(*reinterpret_cast<const uint32_t*>(want + r0));
+    } else if (k < n_groups) {
+#pragma unroll
+      for (int j = 0; j < RING_ROWS; ++j)
+        if (r0 + j >= 0 && r0 + j < n && want[r0 + j] != 0)
+          bits |= 0x80u << (8 * j);
+    }
+    const int c = __popc(bits);
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, incl, off);
+      if (lane >= off) incl += y;
+    }
+    int* tot = warp_tot[tile & 1];
+    if (lane == 31) tot[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int t = lane < n_warps ? tot[lane] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, t, off);
+        if (lane >= off) t += y;
+      }
+      if (lane < n_warps) tot[lane] = t;
+    }
+    __syncthreads();
+    const int32_t rank = carry + incl - c + (warp > 0 ? tot[warp - 1] : 0);
+    carry += tot[n_warps - 1];
+    if (k >= n_groups) continue;
+
+    int32_t x = (int32_t)((uint32_t)h + (uint32_t)rank);
+    int p = floor_mod(x, cap);
+    int slot[RING_ROWS];
+#pragma unroll
+    for (int j = 0; j < RING_ROWS; ++j) {
+      slot[j] = p;
+      if ((bits >> (8 * j + 7)) & 1u) {
+        x = (int32_t)((uint32_t)x + 1u);
+        p = x == I32_MIN ? floor_mod(x, cap) : (p + 1 == cap ? 0 : p + 1);
+      }
+    }
+    int32_t v[RING_ROWS];
+#pragma unroll
+    for (int j = 0; j < RING_ROWS; ++j)
+      v[j] = r0 + j >= 0 && r0 + j < n ? ring[slot[j]] : 0;
+    if (whole && ((uintptr_t)(out + r0) & 15) == 0) {
+      *reinterpret_cast<int4*>(out + r0) = make_int4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < RING_ROWS; ++j)
+        if (r0 + j >= 0 && r0 + j < n) out[r0 + j] = v[j];
+    }
   }
 }
 
@@ -805,11 +939,25 @@ int launch_select_events(const int32_t* time_key, const int32_t* seq,
   return (int)cudaGetLastError();
 }
 
-int launch_group_by_kind(const int32_t* kind, const int32_t* active,
-                         int32_t* order, int32_t* rank, int32_t* counts,
-                         int n_agents, int m, int n_kinds, void* stream) {
-  group_by_kind_kernel<<<n_agents, threads_for(m), 0, (cudaStream_t)stream>>>(
-      kind, active, order, rank, counts, m, n_kinds);
+// active: mask_bytes 4 an int32 mask, 1 a bool or uint8 one. n_kinds in
+// [1, 32].
+int launch_group_by_kind(const int32_t* kind, const void* active,
+                         int mask_bytes, int32_t* order, int32_t* rank,
+                         int32_t* counts, int n_agents, int m, int n_kinds,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_agents < 1 || m < 1 || n_kinds < 1 || n_kinds > GROUP_KEYS - 1)
+    return (int)cudaErrorInvalidValue;
+  if (mask_bytes == 1)
+    group_by_kind_kernel<uint8_t><<<n_agents, threads_for(m), 0, s>>>(
+        kind, static_cast<const uint8_t*>(active), order, rank, counts, m,
+        n_kinds);
+  else if (mask_bytes == 4)
+    group_by_kind_kernel<int32_t><<<n_agents, threads_for(m), 0, s>>>(
+        kind, static_cast<const int32_t*>(active), order, rank, counts, m,
+        n_kinds);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -838,8 +986,9 @@ int launch_route_rank(const int32_t* dst, int32_t* rank, int n_agents, int n,
 int launch_ring_slots(const int32_t* ring, const int32_t* head,
                       const uint8_t* want, int32_t* out, int n_agents, int cap,
                       int n, void* stream) {
-  ring_slots_kernel<<<n_agents, threads_for(n), 0, (cudaStream_t)stream>>>(
-      ring, head, want, out, cap, n);
+  if (n_agents < 1 || cap < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  ring_slots_kernel<<<n_agents, threads_for(n / RING_ROWS + 1), 0,
+                      (cudaStream_t)stream>>>(ring, head, want, out, cap, n);
   return (int)cudaGetLastError();
 }
 

@@ -3,13 +3,14 @@
 Counterpart of ``repro.kernels.event_select``: ``select_events`` (the
 first m of the (time, seq) order by a radix selection; a bitonic sort when
 2m > min(n_pad, 1024)) / ``sort_events`` (bitonic), ``group_by_kind``
-(stable same-kind grouping), ``trace_rank`` (exclusive prefix count of an
+(stable same-kind grouping, an int32, bool or uint8 active mask),
+``trace_rank`` (exclusive prefix count of an
 int32, bool or uint8 mask), ``route_rank`` (stable within-bucket ranks),
 ``ring_slots`` (free-ring insert slots) and ``fused_select`` (the whole
 window front end, its selection the same radix selection or bitonic sort).
 Each wrapper checks device, dtype, shape and contiguity, allocates fresh
-outputs with ``torch.empty`` (``fused_select`` one allocation carved into
-its fields), launches on the current
+outputs with ``torch.empty`` (``fused_select`` and ``group_by_kind`` one
+allocation carved into their outputs), launches on the current
 stream (its raw handle, no ``torch.cuda.Stream`` object), raises if the
 launch was refused, and adds one to its entry of :data:`LAUNCHES`. They
 take CUDA tensors only; ``ops`` sends CPU tensors to the plain versions in
@@ -29,7 +30,7 @@ LAUNCHES = {"select_events": 0, "group_by_kind": 0, "trace_rank": 0,
 # 12 bytes per padded slot must fit one block's 227 KB of shared memory.
 MAX_SORT_SLOTS = 16384
 MAX_KINDS = 32
-# trace_rank's masks: bytes an entry
+# trace_rank's and group_by_kind's masks: bytes an entry
 MASK_BYTES = {torch.int32: 4, torch.bool: 1, torch.uint8: 1}
 
 
@@ -141,23 +142,44 @@ def sort_events(time_key: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
     return select_events(time_key, seq, time_key.shape[1])
 
 
+def _check_group(kind: torch.Tensor, active: torch.Tensor,
+                 n_kinds: int) -> int:
+    """group_by_kind's inputs in one pass: (A, m) contiguous non-empty CUDA
+    int32 kinds, a mask of the same shape (int32, bool or uint8) and
+    ``n_kinds`` in [1, MAX_KINDS]. Returns the mask's bytes an entry."""
+    nbytes = MASK_BYTES.get(active.dtype)
+    if not (nbytes and kind.is_cuda and active.is_cuda
+            and kind.dtype == torch.int32 and kind.dim() == 2
+            and active.shape == kind.shape and kind.is_contiguous()
+            and active.is_contiguous() and kind.numel() > 0
+            and 1 <= n_kinds <= MAX_KINDS):
+        raise ValueError(
+            f"group_by_kind: expects contiguous non-empty (A, m) CUDA int32 "
+            f"kinds, an int32, bool or uint8 mask of their shape and n_kinds "
+            f"in [1, {MAX_KINDS}]; got {kind.dtype} {tuple(kind.shape)} on "
+            f"{kind.device}, {active.dtype} {tuple(active.shape)} on "
+            f"{active.device}, n_kinds {n_kinds}")
+    return nbytes
+
+
 def group_by_kind(kind: torch.Tensor, active: torch.Tensor, n_kinds: int):
-    """(A, m) kinds and 0/1 active flags -> ``(order, rank, counts)``:
-    active rows first grouped by ascending kind (clipped into range) and
-    stable in position, inactive rows last; ``rank`` aligned with ``order``;
-    ``counts`` (A, n_kinds)."""
-    _check("group_by_kind", kind, active)
-    if not 1 <= n_kinds <= MAX_KINDS:
-        raise ValueError(f"group_by_kind: n_kinds must be in [1, {MAX_KINDS}]"
-                         f", got {n_kinds}")
+    """(A, m) int32 kinds and an active mask (int32, bool or uint8, nonzero
+    active; read as it comes) -> ``(order, rank, counts)``: active rows
+    first grouped by ascending kind (clipped into range) and stable in
+    position, inactive rows last; ``rank`` aligned with ``order``;
+    ``counts`` (A, n_kinds). The three are views of one allocation."""
+    nbytes = _check_group(kind, active, n_kinds)
     A, m = kind.shape
-    order = torch.empty_like(kind)
-    rank = torch.empty_like(kind)
-    counts = torch.empty((A, n_kinds), dtype=torch.int32, device=kind.device)
+    am = A * m
+    buf = torch.empty(2 * am + A * n_kinds, dtype=torch.int32,
+                      device=kind.device)
+    p = buf.data_ptr()
     _launch("group_by_kind", _lib().launch_group_by_kind, kind,
-            _ptr(kind), _ptr(active), _ptr(order), _ptr(rank), _ptr(counts),
-            A, m, n_kinds)
-    return order, rank, counts
+            kind.data_ptr(), active.data_ptr(), nbytes, p, p + 4 * am,
+            p + 8 * am, A, m, n_kinds)
+    return (buf.as_strided((A, m), (m, 1)),
+            buf.as_strided((A, m), (m, 1), am),
+            buf.as_strided((A, n_kinds), (n_kinds, 1), 2 * am))
 
 
 def trace_rank(mask: torch.Tensor) -> torch.Tensor:
@@ -190,20 +212,40 @@ def route_rank(dst_agent: torch.Tensor, n_buckets: int) -> torch.Tensor:
     return out
 
 
+def _check_ring(free_ring: torch.Tensor, head: torch.Tensor,
+                want: torch.Tensor) -> None:
+    """ring_slots' inputs in one pass: contiguous CUDA tensors, an (A, cap)
+    int32 ring, an (A,) int32 head and an (A, n) bool mask, none empty. The
+    mask may start anywhere: the kernel reads it in aligned words."""
+    A = free_ring.shape[0] if free_ring.dim() == 2 else -1
+    if not (free_ring.is_cuda and head.is_cuda and want.is_cuda
+            and free_ring.dtype == torch.int32 and head.dtype == torch.int32
+            and want.dtype == torch.bool and want.dim() == 2
+            and want.shape[0] == A and head.shape == (A,)
+            and free_ring.numel() > 0 and want.numel() > 0
+            and free_ring.is_contiguous() and head.is_contiguous()
+            and want.is_contiguous()):
+        raise ValueError(
+            f"ring_slots: expects contiguous non-empty CUDA tensors: an (A, "
+            f"cap) int32 ring, an (A,) int32 head and an (A, n) bool mask; "
+            f"got {free_ring.dtype} {tuple(free_ring.shape)} on "
+            f"{free_ring.device}, {head.dtype} {tuple(head.shape)} on "
+            f"{head.device}, {want.dtype} {tuple(want.shape)} on "
+            f"{want.device}")
+
+
 def ring_slots(free_ring: torch.Tensor, head: torch.Tensor,
                want: torch.Tensor) -> torch.Tensor:
     """(A, cap) int32 free ring, (A,) int32 head, (A, n) bool insert mask ->
     (A, n) int32 slots ``free_ring[a, (head[a] + rank) % cap]``, ``rank``
-    the exclusive count of wanted rows before each row."""
-    _check("ring_slots", free_ring)
-    _check("ring_slots", want, dtype=torch.bool)
-    A, cap = free_ring.shape
-    if want.shape[0] != A:
-        raise ValueError(f"ring_slots: {A} rings but {want.shape[0]} masks")
-    _check_cursor("ring_slots", head, A)
-    out = torch.empty(want.shape, dtype=torch.int32, device=want.device)
-    _launch("ring_slots", _lib().launch_ring_slots, want, _ptr(free_ring),
-            _ptr(head), _ptr(want), _ptr(out), A, cap, want.shape[1])
+    the exclusive count of wanted rows before each row (int32 wrap, floor
+    modulo)."""
+    _check_ring(free_ring, head, want)
+    out = torch.empty_like(want, dtype=torch.int32)
+    _launch("ring_slots", _lib().launch_ring_slots, want,
+            free_ring.data_ptr(), head.data_ptr(), want.data_ptr(),
+            out.data_ptr(), free_ring.shape[0], free_ring.shape[1],
+            want.shape[1])
     return out
 
 

@@ -35,7 +35,18 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor; ``x`` itself (no dispatcher call)
+    when it is one already, as the engine's tensors are."""
+    if x.dtype == I32 and x.is_contiguous():
+        return x
     return x.to(I32).contiguous()
+
+
+def _bool(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous bool tensor (itself when it is one)."""
+    if x.dtype == torch.bool and x.is_contiguous():
+        return x
+    return x.bool().contiguous()
 
 
 def select_events(time_key, seq, exec_cap: int):
@@ -53,9 +64,15 @@ def sort_events(time_key, seq):
 
 
 def group_by_kind(kind, active, n_kinds: int):
-    """(A, m) kinds + active mask -> (order, rank, counts)."""
+    """(A, m) kinds + active mask -> (order, rank, counts). On the card an
+    int32, bool or uint8 mask (the engine's bool ``clean``) goes to the
+    kernel as it is."""
     if _on_card(kind):
-        return _es.group_by_kind(_i32(kind), _i32(active), n_kinds)
+        if active.dtype not in _es.MASK_BYTES:
+            active = active.to(I32)
+        if not active.is_contiguous():
+            active = active.contiguous()
+        return _es.group_by_kind(_i32(kind), active, n_kinds)
     return _ref.group_by_kind(kind, active, n_kinds)
 
 
@@ -80,8 +97,7 @@ def route_rank(dst_agent, n_buckets: int):
 def ring_slots(free_ring, head, want):
     """(A, cap) free ring, (A,) head, (A, n) insert mask -> (A, n) slots."""
     if _on_card(free_ring):
-        return _es.ring_slots(_i32(free_ring), _i32(head),
-                              want.bool().contiguous())
+        return _es.ring_slots(_i32(free_ring), _i32(head), _bool(want))
     return _ref.ring_slots(free_ring, head, want)
 
 
@@ -93,9 +109,9 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
     kw = dict(n_kinds=n_kinds, n_res=n_res)
     if _on_card(time_key):
         return _es.fused_select(
-            *map(_i32, (time_key, seq)), safe.bool().contiguous(),
+            *map(_i32, (time_key, seq)), _bool(safe),
             *map(_i32, (time, kind, src, dst, ctx)),
-            payload.float().contiguous(), valid.bool().contiguous(),
+            payload.float().contiguous(), _bool(valid),
             *map(_i32, (table_id, res, free_tail)), exec_cap, **kw)
     return _ref.fused_select(time_key, seq, safe, time, kind, src, dst, ctx,
                              payload, valid, table_id, res, free_tail,
