@@ -9,7 +9,8 @@ checkout of the repository). Phases, each of which raises on failure:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile each ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
    one nvcc per source, all started together; ptxas' registers and spills
-   of each kernel (group_by_kind's and ring_slots' on lines of their own),
+   of each kernel (group_by_kind's, ring_slots' and route_rank's on lines
+   of their own),
    the GLA tensor-core kernels' shared memory and CTAs per
    SM, and the max-min warp kernel's CTAs per SM;
 3. kernels: each of the six window front-end kernels against its plain
@@ -23,7 +24,10 @@ checkout of the repository). Phases, each of which raises on failure:
    ring_slots over a 4096 ring and 4096 rows) and on edge cases (group at
    m from 1 to 4096, 1, 8 and 32 kinds, bool, uint8 and int32 masks; ring
    at n from 1 to 12289, masks 0-3 bytes off a word, heads near 2^31 - 1
-   over a 4096 and a 3001 ring); the
+   over a 4096 and a 3001 ring; route at n from 1 to 12289 with 1 to 64
+   buckets, uniform, all sentinel, one key and the engine's compaction,
+   directly and through ``ops``, keys outside the contract, and the
+   launcher's refusals); the
    max-min water-fill bit for bit, each call's kernel checked against the
    dispatch rule (a warp per lane up to 32 flows and 32 links, else a
    block), at tiered_grid's shapes (2048, 8 and 1 lanes of 32 flows over 4
@@ -36,8 +40,11 @@ checkout of the repository). Phases, each of which raises on failure:
    call (group_by_kind's row is the engine's call, ``ops`` on the bool
    mask); then trace_rank as the engine calls it (a bool mask through
    ``ops``) and where its call's host time goes, piece by piece, the same
-   for group_by_kind and ring_slots (each against its former call path in
-   turns) and for
+   for group_by_kind, ring_slots and route_rank (each against its former
+   call path in turns; route_rank also timed on a ``dst_agent`` captured
+   from stitched ``tiered_grid`` through the engine's ``route_fn`` hook,
+   against a stable ``argsort``, and its kernel with 4 steps kept in
+   registers against a build that walks twice, in turns) and for
    maxmin_rates at (2048, 32, 4);
 3z. the model zoo's kernels against their plain versions on the card, in
    float32 (attention's FFMA kernel) and bfloat16 (its wgmma kernel), at
@@ -389,6 +396,8 @@ def phase_kernels(es, ref) -> dict:
         print(f"[kernels] route_rank n=4096 buckets=9 {mode}: equal",
               flush=True)
 
+    err["route_rank"] = max(err["route_rank"],
+                            check_route_rank(es, ops, ref, ri))
     err["group_by_kind"] = max(err["group_by_kind"],
                                check_group_by_kind(es, ops, ref, ri))
     err["ring_slots"] = check_ring_slots(es, ref, ri)
@@ -459,9 +468,12 @@ def phase_kernels(es, ref) -> dict:
             fn=lambda: es.trace_rank(mk), plain=lambda: ref.trace_rank(mk),
             lib=lambda: torch.cumsum(mk, dim=1, dtype=torch.int32),
             bytes=A * m * 8, ops=A * m),
+        # the stable sort by bucket: the grouping the ranks need, one call;
+        # the kernel looks at each key once
         "route_rank": dict(
             fn=lambda: es.route_rank(dd, nb), plain=lambda: ref.route_rank(dd),
-            lib=None, bytes=A * n_emit * 8, ops=A * n_emit * nb),
+            lib=lambda: torch.argsort(dd, dim=1, stable=True),
+            bytes=A * n_emit * 8, ops=A * n_emit),
     }
     out = {}
     for name, r in rows.items():
@@ -480,6 +492,7 @@ def phase_kernels(es, ref) -> dict:
     trace_rank_call(es, ops, mk, out["trace_rank"])
     group_call(es, ops, kd, acb, nk, out["group_by_kind"])
     ring_call(es, ops, ring, head, want, out["ring_slots"])
+    route_call(es, ops, dd, nb, out["route_rank"])
     return out
 
 
@@ -717,6 +730,231 @@ def ring_call(es, ops, ring, head, want, row: dict) -> None:
     for what, fn in pieces.items():
         print(f"[kernels] ring_slots call path: {what}: "
               f"{host_us(fn):.3f} us host", flush=True)
+
+
+def engine_route_input(windows: int = 60):
+    """The ``dst_agent`` that ``route_rank`` gets from the engine: stitched
+    ``tiered_grid`` on the card for ``windows`` windows, captured through
+    ``Engine(route_fn=...)`` by a function that records its input and then
+    calls ``ops.route_rank`` as the engine's default does. Returns the input
+    of the window with the median count of valid rows (those below the
+    sentinel A) among the windows that routed any, and that count."""
+    import torch
+    from repro_torch.core import components as comps
+    from repro_torch.core import Engine
+    from repro_torch.kernels import ops
+    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
+    seen = []
+
+    def record(dst_agent):
+        seen.append(dst_agent.clone())
+        return ops.route_rank(dst_agent, spec.n_agents + 1)
+
+    Engine(world, own, init_ev, spec, trace_cap=65536, route_fn=record,
+           device="cuda").run_local(max_windows=windows)
+    valid = [int((d < spec.n_agents).sum()) for d in seen]
+    routed = sorted((v, w) for w, v in enumerate(valid) if v > 0)
+    if not routed:
+        raise AssertionError(f"no emit routed in {windows} windows")
+    v, w = routed[len(routed) // 2]
+    d = seen[w]
+    print(f"[kernels] route_rank's engine input: {len(seen)} route calls in "
+          f"{windows} stitched tiered_grid windows, {len(routed)} with valid "
+          f"rows (valid rows a call: min {routed[0][0]}, median {v}, max "
+          f"{routed[-1][0]}); window {w}: {tuple(d.shape)}, {v} valid rows, "
+          f"per agent {(d < spec.n_agents).sum(1).tolist()}, the rest the "
+          f"sentinel {spec.n_agents}", flush=True)
+    return d, v
+
+
+def route_call(es, ops, dd, nb: int, row: dict) -> None:
+    """route_rank on the engine's own input (``engine_route_input``) beside
+    the uniform buckets of ``row``; then the call against the former call
+    path (the shape check, ``max_keys()`` through ctypes on every call) around
+    the same kernel in turns, and where a call's host time goes, piece by
+    piece. Adds the engine input's times to ``row``."""
+    import torch
+    from repro_torch.kernels import ref
+    de, n_valid = engine_route_input()
+    A, n = dd.shape
+    lib = es._lib()
+    out = torch.empty_like(dd)
+    stream = es._stream(dd)
+    pd, po = dd.data_ptr(), out.data_ptr()
+    if not torch.equal(es.route_rank(de, nb), ref.route_rank(de)):
+        raise AssertionError("route_rank differs on the engine's input")
+
+    def as_before():
+        es._check("route_rank", dd)
+        lib_ = es._lib()
+        if not 1 <= nb <= lib_.max_keys():
+            raise ValueError(nb)
+        o = torch.empty_like(dd)
+        es._launch("route_rank", lib_.launch_route_rank, dd, es._ptr(dd),
+                   es._ptr(o), A, n, nb)
+        return o
+
+    ms = cuda_ms(lambda: ops.route_rank(de, nb))
+    dev_ms = device_ms(lambda: ops.route_rank(de, nb), "route_rank_kernel")
+    lib_ms = cuda_ms(lambda: torch.argsort(de, dim=1, stable=True))
+    row.update(engine_ms=ms, engine_device_ms=dev_ms,
+               engine_library_ms=lib_ms, engine_valid_rows=n_valid)
+    print(f"[kernels] route_rank on the engine's input ({A}x{n}, {n_valid} "
+          f"valid rows; ops): {ms:.6f} ms (device {dev_ms:.6f} ms); stable "
+          f"argsort {lib_ms:.6f} ms; on uniform buckets {row['ms']:.6f} ms "
+          f"(device {row['device_ms']:.6f} ms)", flush=True)
+    in_turns("route_rank, the call against the former call path",
+             {"es.route_rank": lambda: es.route_rank(dd, nb),
+              "the former call path": as_before})
+    row.update(route_walks(es, dd, de, nb))
+    pieces = {
+        "check (_check, the shape and n_buckets, max_keys read once)":
+            lambda: (es._check("route_rank", dd),
+                     dd.dim() != 2 or not 1 <= nb <= es._max_keys()),
+        "check as before (_check, max_keys() through ctypes)": lambda: (
+            es._check("route_rank", dd), 1 <= nb <= lib.max_keys()),
+        "max_keys() through ctypes": lambda: lib.max_keys(),
+        "allocation: empty_like": lambda: torch.empty_like(dd),
+        "pointers and stream": lambda: (dd.data_ptr(), out.data_ptr(),
+                                        es._stream(dd)),
+        "ctypes call (the launch)": lambda: lib.launch_route_rank(
+            pd, po, A, n, nb, stream),
+        "ops' conversion (_i32)": lambda: ops._i32(dd),
+        "whole: es.route_rank": lambda: es.route_rank(dd, nb),
+        "whole: ops.route_rank, the engine's": lambda: ops.route_rank(dd, nb),
+        "whole: the former call path": as_before,
+    }
+    for what, fn in pieces.items():
+        print(f"[kernels] route_rank call path: {what}: "
+              f"{host_us(fn):.3f} us host", flush=True)
+
+
+def two_walk_lib():
+    """``event_select.cu`` built again with ``-DROUTE_KEPT=0``: its
+    ``launch_route_rank`` runs the two-walk ``route_rank_kernel<0>`` at every
+    n, where the library proper keeps up to 4 steps a warp in registers
+    (``<1>``-``<4>``, n <= 4096)."""
+    import ctypes
+    from repro_torch.kernels import build
+    so = build.BUILD_ROOT / "route_two_walk" / "libevent_select_two_walk.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-DROUTE_KEPT=0", "-o", str(so),
+         str(build.CSRC / "event_select.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -DROUTE_KEPT=0 failed:\n{proc.stdout}")
+    print(f"[build] event_select -DROUTE_KEPT=0: "
+          f"{time.perf_counter() - t0:.2f} s -> {so}", flush=True)
+    lib = ctypes.CDLL(str(so))
+    lib.launch_route_rank.argtypes = \
+        build._SIGNATURES["event_select"]["launch_route_rank"]
+    return lib
+
+
+def route_walks(es, dd, de, nb: int, rounds: int = 7) -> dict:
+    """route_rank_kernel<4> (each warp's 4 steps kept in registers) against
+    <0> (two walks, ``two_walk_lib``) at the engine's (A, 4096): both
+    byte-equal to the plain version, then their device times in turns,
+    ``rounds`` times, on uniform buckets (``dd``) and on the engine's input
+    (``de``). Returns the medians."""
+    import torch
+    from repro_torch.kernels import ref
+    libs = {"<4>, kept in registers": es._lib(),
+            "<0>, two walks": two_walk_lib()}
+    stream = es._stream(dd)
+    out = {}
+    for label, d in (("uniform buckets", dd), ("the engine's input", de)):
+        A, n = d.shape
+        want = ref.route_rank(d)
+        fns = {}
+        for k, lib in libs.items():
+            o = torch.empty_like(d)
+            args = (d.data_ptr(), o.data_ptr(), A, n, nb, stream)
+            rc = lib.launch_route_rank(*args)
+            if rc != 0 or not torch.equal(o, want):
+                raise AssertionError(f"route_rank {k} on {label}: rc {rc}, "
+                                     f"or it differs from the plain version")
+            fns[k] = lambda lib=lib, args=args: lib.launch_route_rank(*args)
+        times = {k: [] for k in fns}
+        for _ in range(rounds):
+            for k, fn in fns.items():
+                times[k].append(device_ms(fn, "route_rank_kernel"))
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        print(f"[kernels] route_rank ({A}x{n}, {nb} buckets, {label}) device "
+              f"ms in turns: " + "; ".join(
+                  f"{k} median {med[k]:.6f}, range {min(v):.6f}-"
+                  f"{max(v):.6f}, rounds {[round(x, 6) for x in v]}"
+                  for k, v in times.items()), flush=True)
+        tag = "uniform" if dd is d else "engine"
+        out[f"kept_device_ms_{tag}"] = med["<4>, kept in registers"]
+        out[f"two_walk_device_ms_{tag}"] = med["<0>, two walks"]
+    return out
+
+
+def check_route_rank(es, ops, ref, ri) -> int:
+    """route_rank against its plain version on the edges of its design: n
+    from 1 to 12289 (one 32-row step a warp up to 1024, steps kept in
+    registers up to 4096, two walks above), 1, 2, 9, 33 and 64 buckets
+    (above 32 a lane holds two keys), uniform keys, all the sentinel
+    (n_buckets - 1), one key, and the engine's compaction (k valid rows
+    first, the rest the sentinel; k 0, 6 and 4096), directly and through
+    ``ops``; keys outside [0, n_buckets), which leave the other rows' ranks
+    as they are; the launcher's and the wrapper's refusals."""
+    import torch
+    A, err = 8, 0
+    for n in (1, 31, 32, 33, 1000, 1024, 1025, 4096, 4097, 12289):
+        for nb in (1, 2, 9, 33, 64):
+            sentinel = nb - 1
+            cases = {"uniform": ri(0, nb, (A, n)),
+                     "sentinel": ri(sentinel, nb, (A, n)),
+                     "one key": ri(nb // 2, nb // 2 + 1, (A, n))}
+            for k in (0, 6, 4096):
+                d = ri(sentinel, nb, (A, n))
+                kk = min(k, n)
+                d[:, :kk] = ri(0, max(sentinel, 1), (A, kk))
+                cases[f"{k} valid first"] = d
+            for d in cases.values():
+                want = ref.route_rank(d)
+                err = max(err, max_err(es.route_rank(d, nb), want))
+                err = max(err, max_err(ops.route_rank(d, nb), want))
+        print(f"[kernels] route_rank n={n} buckets 1, 2, 9, 33, 64: uniform, "
+              f"all sentinel, one key, 0/6/4096 valid first (direct, ops): "
+              f"equal", flush=True)
+    for n, nb in ((4096, 9), (12289, 33), (1000, 64)):
+        bad = ri(0, 10, (A, n)) == 0
+        junk = torch.tensor([-7, -1, nb, nb + 40, 2**31 - 1],
+                            dtype=torch.int32, device=bad.device)
+        d = torch.where(bad, junk[ri(0, 5, (A, n)).long()], ri(0, nb, (A, n)))
+        got, want = es.route_rank(d, nb), ref.route_rank(d)
+        torch.cuda.synchronize()
+        if not torch.equal(got[~bad], want[~bad]):
+            raise AssertionError(f"route_rank n={n} n_buckets={nb}: keys out "
+                                 f"of range moved the other rows' ranks")
+        print(f"[kernels] route_rank n={n} buckets={nb}, "
+              f"{int(bad.sum())} keys outside [0, {nb}): the other rows "
+              f"equal", flush=True)
+    lib = es._lib()
+    d = ri(0, 9, (A, 64))
+    out = torch.empty_like(d)
+    for args in ((0, 64, 9), (A, 0, 9), (A, 64, 0), (A, 64, 65),
+                 (A, 64, -1)):
+        rc = lib.launch_route_rank(d.data_ptr(), out.data_ptr(), *args,
+                                   es._stream(d))
+        if rc != 1:   # cudaErrorInvalidValue
+            raise AssertionError(f"launch_route_rank{args} returned {rc}, "
+                                 f"want cudaErrorInvalidValue (1)")
+    for nb in (0, 65):
+        try:
+            es.route_rank(d, nb)
+        except ValueError:
+            continue
+        raise AssertionError(f"route_rank took n_buckets={nb}")
+    print("[kernels] launch_route_rank refuses n_agents 0, n 0, n_buckets 0, "
+          "65 and -1 (cudaErrorInvalidValue); the wrapper n_buckets 0 and 65 "
+          "(ValueError)", flush=True)
+    return err
 
 
 def fused_inputs(ri, g, A, cap, density, tail, one_key=False,
@@ -1880,7 +2118,8 @@ def main() -> int:
                         if any(k in line for k in ("registers", "Compiling",
                                                    "spill"))), flush=True)
     ptxas_lines(build.build_info["event_select"]["log"],
-                ("group_by_kind_kernel", "ring_slots_kernel"))
+                ("group_by_kind_kernel", "ring_slots_kernel",
+                 "route_rank_kernel"))
     lib = build.library("rwkv6_scan")
     print(f"[build] rwkv6_tc_kernel: {lib.gla_tc_smem_bytes()} B of dynamic "
           f"shared memory, {lib.gla_tc_blocks_per_sm()} CTAs per SM",

@@ -505,24 +505,111 @@ __global__ void group_by_kind_kernel(const int32_t* __restrict__ kind,
 }
 
 // ------------------------------------------------------------- route
-// Key-range contract: every dst is in [0, n_buckets). rank[i] counts the
-// earlier rows of the same bucket: O(n * n_buckets / 32) ballots instead of
-// the TPU kernel's O(n^2) predecessor count.
+// rank[i] counts the earlier rows of row i's bucket (keys in [0, n_buckets),
+// n_buckets <= MAX_KEYS; the engine passes agent ids with A the sentinel of
+// rows that are not valid), where the TPU kernel counts predecessors
+// pairwise, O(n^2). This is group_by_kind's rank written at the row: warp
+// w owns the contiguous segment of `steps` 32-row steps from row 32 * steps
+// * w (steps = 4 at n = 4096 on 1024 threads, the engine's emit_cap), so
+// segments follow row order, and there is one __syncthreads in all:
+//   1. per step, walk_step on the warp's own row of cnt: a row's rank among
+//      its bucket's rows in the warp (the group's lowest lane hands the
+//      running count it read to its peers by a shuffle; a __syncwarp a
+//      step). The engine's rows are mostly the sentinel, so most steps are
+//      one group;
+//   2. after the barrier, lane g sums column g (and g + 32) of the earlier
+//      warps' counts, and each row adds its key's sum, taken from lane
+//      key & 31 by a shuffle.
+// Up to ROUTE_KEPT steps (n <= 4096) keep each step's key and rank in
+// registers (template S); more steps (S = 0) re-read the keys and walk the
+// segment again from the earlier warps' counts, in a second table (later
+// warps still read the first). A key outside [0, n_buckets) breaks the
+// contract: it is counted nowhere and reads no table entry, so its rank is
+// unspecified and the rows that keep the contract keep their ranks.
+// Built with -DROUTE_KEPT=0, every launch walks twice (chip_smoke.py times
+// that build against this one).
+#ifndef ROUTE_KEPT
+#define ROUTE_KEPT 4
+#endif
+
+// A warp's step over one row a lane: the row's rank among the rows of its
+// key that the warp has walked (run[key] before the step plus its peers
+// below its lane); the group's lowest lane moves run[key] on by the
+// group's size. A key outside [0, n_keys) reads and moves nothing.
+__device__ __forceinline__ int walk_step(int key, int n_keys, int* run) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(FULL_MASK, key);
+  const int leader = __ffs(peers) - 1;
+  int seen = 0;
+  if (lane == leader && (unsigned)key < (unsigned)n_keys) {
+    seen = run[key];
+    run[key] = seen + __popc(peers);
+  }
+  seen = __shfl_sync(FULL_MASK, seen, leader);
+  __syncwarp();
+  return seen + __popc(peers & ((1u << lane) - 1u));
+}
+
+template <int S>   // steps kept in registers, or 0: walk the segment twice
 __global__ void route_rank_kernel(const int32_t* __restrict__ dst,
-                                  int32_t* __restrict__ rank_out,
-                                  int n, int n_buckets) {
-  __shared__ int warp_tot[MAX_WARPS * MAX_KEYS];
-  __shared__ int carry[MAX_KEYS];
-  const int a = blockIdx.x;
-  dst += (size_t)a * n;
-  rank_out += (size_t)a * n;
-  for (int g = threadIdx.x; g < n_buckets; g += blockDim.x) carry[g] = 0;
+                                  int32_t* __restrict__ rank_out, int n,
+                                  int n_buckets) {
+  __shared__ int cnt[MAX_WARPS][MAX_KEYS];   // a warp's rows of each key
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t a = blockIdx.x;
+  dst += a * n;
+  rank_out += a * n;
+  const int steps = S > 0 ? S : (n + blockDim.x - 1) / blockDim.x;
+  const int lo = warp * steps * 32 + lane;
+  cnt[warp][lane] = 0;
+  cnt[warp][lane + 32] = 0;
+  __syncwarp();
+
+  // 1. each warp's counts (S > 0: and each row's rank in the warp)
+  int key[S > 0 ? S : 1], rank[S > 0 ? S : 1];
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      key[s] = lo + 32 * s < n ? dst[lo + 32 * s] : -1;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      rank[s] = walk_step(key[s], n_buckets, cnt[warp]);
+  } else {
+    for (int s = 0; s < steps; ++s) {
+      const int i = lo + 32 * s;
+      walk_step(i < n ? dst[i] : -1, n_buckets, cnt[warp]);
+    }
+  }
   __syncthreads();
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int k = i < n ? dst[i] : -1;
-    const int r = chunk_rank(k, n_buckets, warp_tot, carry);
-    if (i < n) rank_out[i] = r;
+
+  // 2. lane g: the rows of key g (and of key g + 32) in earlier warps
+  const bool wide = n_buckets > 32;
+  int before0 = 0, before1 = 0;
+  for (int w = 0; w < warp; ++w) {
+    before0 += cnt[w][lane];
+    if (wide) before1 += cnt[w][lane + 32];
+  }
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int k = key[s];
+      int before = __shfl_sync(FULL_MASK, before0, k & 31);
+      if (wide) {
+        const int b1 = __shfl_sync(FULL_MASK, before1, k & 31);
+        if (k >= 32) before = b1;
+      }
+      if (lo + 32 * s < n) rank_out[lo + 32 * s] = rank[s] + before;
+    }
+  } else {
+    __shared__ int pos[MAX_WARPS][MAX_KEYS];   // the second walk's counts
+    pos[warp][lane] = before0;
+    pos[warp][lane + 32] = before1;
+    __syncwarp();
+    for (int s = 0; s < steps; ++s) {
+      const int i = lo + 32 * s;
+      const int r = walk_step(i < n ? dst[i] : -1, n_buckets, pos[warp]);
+      if (i < n) rank_out[i] = r;
+    }
   }
 }
 
@@ -976,10 +1063,29 @@ int launch_trace_rank(const void* mask, int mask_bytes, int32_t* out,
   return (int)cudaGetLastError();
 }
 
+// dst and rank (A, n); keys in [0, n_buckets), n_buckets in [1, MAX_KEYS].
+// Up to ROUTE_KEPT 32-row steps a warp (n <= 4096) keep their keys in
+// registers; more walk each warp's segment twice.
 int launch_route_rank(const int32_t* dst, int32_t* rank, int n_agents, int n,
                       int n_buckets, void* stream) {
-  route_rank_kernel<<<n_agents, threads_for(n), 0, (cudaStream_t)stream>>>(
-      dst, rank, n, n_buckets);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_agents < 1 || n < 1 || n_buckets < 1 || n_buckets > MAX_KEYS)
+    return (int)cudaErrorInvalidValue;
+  const int threads = threads_for(n);
+  const int steps = (n + threads - 1) / threads;
+  const int kept = steps <= ROUTE_KEPT ? steps : 0;
+  static_assert(ROUTE_KEPT >= 0 && ROUTE_KEPT <= 4,
+                "one instance a kept step count");
+  if (kept == 1)
+    route_rank_kernel<1><<<n_agents, threads, 0, s>>>(dst, rank, n, n_buckets);
+  else if (kept == 2)
+    route_rank_kernel<2><<<n_agents, threads, 0, s>>>(dst, rank, n, n_buckets);
+  else if (kept == 3)
+    route_rank_kernel<3><<<n_agents, threads, 0, s>>>(dst, rank, n, n_buckets);
+  else if (kept == 4)
+    route_rank_kernel<4><<<n_agents, threads, 0, s>>>(dst, rank, n, n_buckets);
+  else
+    route_rank_kernel<0><<<n_agents, threads, 0, s>>>(dst, rank, n, n_buckets);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,8 @@ take CUDA tensors only; ``ops`` sends CPU tensors to the plain versions in
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
@@ -192,23 +194,30 @@ def trace_rank(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def _max_keys() -> int:
+    """The kernel's bucket table (``max_keys()``), read once, when the
+    library is loaded."""
+    return _lib().max_keys()
+
+
 def route_rank(dst_agent: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """(A, n) bucket ids -> (A, n) stable within-bucket ranks.
 
     Key-range contract: every ``dst_agent`` value lies in
     ``[0, n_buckets)`` (the engine passes agent ids with ``A`` as the
     sentinel of invalid rows, so ``n_buckets = A + 1``); ``n_buckets`` is at
-    most the kernel's shared-memory key table. The plain version
-    ``ref.route_rank`` takes any keys."""
+    most the kernel's shared-memory key table. A key outside the range gets
+    an unspecified rank and leaves the other rows' ranks as they are. The
+    plain version ``ref.route_rank`` takes any keys."""
     _check("route_rank", dst_agent)
-    lib = _lib()
-    if not 1 <= n_buckets <= lib.max_keys():
-        raise ValueError(f"route_rank: n_buckets must be in [1, "
-                         f"{lib.max_keys()}], got {n_buckets}")
-    A, n = dst_agent.shape
+    if dst_agent.dim() != 2 or not 1 <= n_buckets <= _max_keys():
+        raise ValueError(f"route_rank: expects (A, n) buckets and n_buckets "
+                         f"in [1, {_max_keys()}], got "
+                         f"{tuple(dst_agent.shape)} and {n_buckets}")
     out = torch.empty_like(dst_agent)
-    _launch("route_rank", lib.launch_route_rank, dst_agent, _ptr(dst_agent),
-            _ptr(out), A, n, n_buckets)
+    _launch("route_rank", _lib().launch_route_rank, dst_agent,
+            dst_agent.data_ptr(), out.data_ptr(), *dst_agent.shape, n_buckets)
     return out
 
 

@@ -4,11 +4,15 @@ against the JAX Pallas ``flash_attention`` in interpret mode and
 ``repro.kernels.ref.attention_ref``, at tests/test_kernels.py's tolerances
 (2e-6 in float32, 2e-2 in bfloat16). Inputs come from a numpy seed and are
 cast to the working dtype by both frameworks (the same round-to-nearest).
-Six cases cover GQA (groups 5, 3 and 2), windows, lengths that are not a
-multiple of the kernels' 64- and 128-row blocks, bfloat16, a non-causal
-call and causal calls with fewer and with more queries than keys; the cases with a window also run the model's layout, (b, s, heads,
-head_dim) flattened to head-major rows, against the JAX model's
-``_chunked_attention``.
+Three cases here cover GQA (groups 5, 3 and 2), a window, bfloat16 and a
+non-causal call; ``tests/test_torch_attention_edges.py`` runs three more
+through the same check: a bfloat16 window and lengths that are no multiple
+of the kernels' 64- and 128-row blocks, and causal calls with fewer and
+with more queries than keys. The cases with a window also run the model's
+layout, (b, s, heads, head_dim) flattened to head-major rows, against the
+JAX model's ``_chunked_attention``. Each case runs Pallas in interpret
+mode for seconds, so each file holds 3 (xdist ``loadfile`` hands files of
+at most 3 tests out after the long reference files).
 """
 import numpy as np
 import pytest
@@ -29,16 +33,16 @@ from repro_torch.models import layers as L  # noqa: E402
     (10, 2, 48, 48, 16, True, 32, "float32", 16),     # hymba-like: group 5
     (6, 2, 64, 64, 32, True, 0, "bfloat16", 32),      # smollm-like: group 3
     (4, 2, 32, 64, 64, False, 0, "float32", 32),      # cross-attention shape
-    # the card's bf16 edge: a window that is no multiple of any tile, group 5
-    (10, 2, 200, 200, 64, True, 100, "bfloat16", 40),
-    # causal with Sq != Skv (the mask has no offset): fewer queries than
-    # keys, with a window; more queries than keys, with a window, so rows
-    # 63 and on have no key in their band and take the mean of every value
-    (6, 2, 48, 112, 32, True, 24, "float32", 16),
-    (4, 2, 96, 48, 16, True, 16, "float32", 16),
 ])
 def test_plain_attention_matches_pallas_and_ref(bh, bkv, sq, skv, d, causal,
                                                 window, dtype, block):
+    check_attention(bh, bkv, sq, skv, d, causal, window, dtype, block)
+
+
+def check_attention(bh, bkv, sq, skv, d, causal, window, dtype, block):
+    """The plain attention against the Pallas kernel (interpret mode) and
+    ``attention_ref``; with a window, also in the model's layout against
+    ``_chunked_attention``."""
     rng = np.random.default_rng(bh * 100 + sq)
     q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
                ((bh, sq, d), (bkv, skv, d), (bkv, skv, d)))

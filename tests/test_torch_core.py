@@ -3,10 +3,12 @@
 Inputs are made with numpy from a seed and fed to both packages; every
 comparison is exact, floats by bit pattern. Covered: the event pool (insert,
 release, gather, compact, trace append with ring wrap and overflow drops,
-the reference insert and reclaims, the ring rebuild), sync, the network
-model in its batched and one-lane contexts, the scenario builders, every
-handler kind through the batched dispatch (delta and dense merges), the
-import rule, and the device rule.
+the reclaims, the ring rebuild), sync, the network model in its batched and
+one-lane contexts, the scenario builders, every handler kind through the
+batched dispatch (delta merge), the import rule, and the device rule. The
+reference insert and reclaim run in ``tests/test_torch_eager_refs.py`` and
+the dense merge in ``tests/test_torch_handler_dense.py``, files of at most
+3 tests, since each compares against seconds of JAX work.
 """
 import ast
 import dataclasses
@@ -144,24 +146,6 @@ def assert_pools_same(pool_t, pools_j, what):
     for a, pj in enumerate(pools_j):
         for f, v in np_tree(pj).items():
             assert_same(getattr(pool_t, f)[a].numpy(), v, f"{what}:{f}")
-
-
-def test_reference_insert_and_reclaim_match_reference():
-    """insert_ref (ascending free slots, overflow counted) and pop_mask_ref,
-    twice over, on pools whose ring is not the identity."""
-    rng = np.random.default_rng(21)
-    A, cap = 3, 16
-    pool_t, pools_j = _random_pools(rng, A, cap, 10)
-    for step, p_valid in enumerate((0.9, 0.6)):
-        b = rand_batch(rng, A, 12, p_valid)
-        pool_t, drop_t = tev.insert_ref(pool_t, t_batch(b))
-        mask = rng.random((A, cap)) < 0.4
-        pool_t = tev.pop_mask_ref(pool_t, torch.from_numpy(mask))
-        for a in range(A):
-            pools_j[a], drop_j = jev.insert_ref(pools_j[a], j_agent(b, a))
-            assert int(drop_j) == int(drop_t[a])
-            pools_j[a] = jev.pop_mask_ref(pools_j[a], jnp.asarray(mask[a]))
-        assert_pools_same(pool_t, pools_j, str(step))
 
 
 def test_pop_mask_extract_and_rebuild_ring_match_reference():
@@ -590,24 +574,11 @@ KIND_TABLE_NAME = {tcomp.K_FLOW_START: "net", tcomp.K_FLOW_END: "net",
                    tcomp.K_GEN_TICK: "gen", tcomp.K_NOOP: "gen"}
 
 
-_RUN_J_DENSE = jax.jit(functools.partial(jhand.apply_handler_batch_dense,
-                                         jcomp.BUILTIN.make_handlers(2, 2.0)))
-
-
 @pytest.mark.parametrize("kind", list(range(tcomp.N_KINDS)) + ["mixed"])
 def test_apply_handler_batch_matches_reference(kind):
     """One batched dispatch of random events (distinct rows per table, some
     lanes inactive): the world, the counter delta and the valid emits."""
     _check_batch(kind, _RUN_J, thand.apply_handler_batch)
-
-
-@pytest.mark.parametrize("kind", [tcomp.K_FLOW_START, "mixed", "nan"])
-def test_apply_handler_batch_dense_matches_reference(kind):
-    """The whole-table merge of ``merge_mode="dense"``. In "nan" (flow
-    starts on a world with NaN rates) the reference's ``!=`` takes the first
-    active lane's copy of a NaN element, so a later lane's new rate is lost:
-    the one case where the dense merge differs from the delta merge."""
-    _check_batch(kind, _RUN_J_DENSE, thand.apply_handler_batch_dense)
 
 
 def _check_batch(kind, run_j, run_t):
