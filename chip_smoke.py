@@ -86,6 +86,16 @@ checkout of the repository). Phases, each of which raises on failure:
    with 1 and 4 agents, and with 4 agents under ``--fused-select``, under
    ``--insert-mode ref --merge-mode dense`` and under ``--adaptive-exec``,
    each equal to ``--device cpu`` and to the stitched run;
+4e. the two models defined outside core, through ``Engine.run_local`` on
+   both front ends (8 agents, the registries' 10 and 11 kinds): the
+   replica cache (1,024 caches of 8 ways, 8 keys, 10 rounds) and the
+   failure/repair process (64 farms of 16 CPUs, 2 processes a farm, bursts
+   of 3, a job generator a farm; also ``run_adaptive``), each run's launch
+   counts, events/s and windows, a profile of 10 windows (device ops a
+   window), no drops, byte-equal to the CPU run and in full-row order to
+   the oracle; then ``failures.xla_log`` on all 2^22 unit draws, card
+   against CPU, and int32 payload bit patterns (31-bit, denormal, NaN)
+   through both front ends;
 4z. the model path at full width and 2 layers: hymba-1.5b (B 2, S 2048) and
    rwkv6-7b (B 2, S 1024) in float32 with TF32 off, one set of random
    weights on the card (the kernels) and on the CPU (the plain versions):
@@ -1595,6 +1605,253 @@ def phase_entry_point() -> dict:
     return ran
 
 
+# --------------------------------------------------------------- phase 4e
+# The two extension models at widths their users would call real. The
+# replica cache: 1,024 caches of 8 ways, 8 keys, so the first 8 rounds miss
+# and the rest hit; the depth cut to 10 rounds. The failure/repair process:
+# 64 farms of 16 CPUs, 2 processes a farm (same-row collisions through the
+# fallback), bursts of 3, a JOB_SUBMIT generator a farm; the depth cut to
+# 6 bursts a process and 32 jobs a farm. 8 agents each; pool_cap keeps
+# every drop counter at 0.
+CACHE_KW = dict(n_caches=1024, cache_ways=8, n_keys=8, n_rounds=10,
+                n_agents=8, pool_cap=4096)
+FAIL_KW = dict(n_farms=64, n_cpu=16, procs_per_farm=2, burst=3, n_bursts=6,
+               jobs_per_farm=32, n_agents=8, pool_cap=1024)
+FAIL_LADDER = (16, 64, 256)
+STITCHED_HOOKS = ("select_events", "group_by_kind", "trace_rank",
+                  "route_rank")
+FUSED_HOOKS = ("fused_select", "ring_slots", "trace_rank", "route_rank")
+
+
+def profile_windows(eng, st, n: int = 10):
+    """``n`` windows from state ``st`` under torch.profiler: ms a window,
+    device ops a window and the device's busy share of the wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st = eng.step_local(st)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("the profile holds no device op")
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    return ms, len(kern) / n, busy / ms
+
+
+def run_model(label: str, built, card: str, fused: bool = False,
+              policy=None):
+    """One run of a built extension model on the card through the normal
+    entry point (``run_local``, or ``run_adaptive`` under ``policy``), the
+    launch counts set to 0 just before and read just after; raises on a
+    drop or a hook kernel that never launched. Returns (engine, state,
+    launches, numbers)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import Engine
+    from repro_torch.core import monitoring as mon
+
+    spec = dataclasses.replace(built[3], fused_select=fused)
+    eng = Engine(*built[:3], spec, trace_cap=65536, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = (eng.run_local() if policy is None
+          else eng.run_adaptive(max_windows=200_000, policy=policy))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = launches()
+    c = st.counters.sum(0).cpu()
+    windows, events = int(st.windows[0]), int(c[mon.C_EVENTS])
+    for i in mon.DROP_COUNTERS + (mon.C_TRACE_DROP,):
+        if int(c[i]) != 0:
+            raise AssertionError(f"{label}: counter "
+                                 f"{mon.BUILTIN_COUNTERS[i][0]} = {int(c[i])}")
+    hooks = FUSED_HOOKS if fused else STITCHED_HOOKS
+    missing = [k for k in hooks if ran[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: never launched {missing}")
+    if fused and (ran["select_events"] or ran["group_by_kind"]):
+        raise AssertionError(f"{label}: the stitched hooks launched {ran}")
+    print(f"[scenarios] {label} cuda: windows={windows} events={events} "
+          f"wall={wall:.3f} s events/s={events / wall:.1f} "
+          f"fallback rows/window={int(c[mon.C_BATCH_FALLBACK]) / windows:.2f}"
+          f" launches={ran} ({card})", flush=True)
+    return eng, st, ran, dict(windows=windows, events=events, wall=wall)
+
+
+def oracle_equal(label: str, built, runs: dict) -> None:
+    """Every run's merged trace equals the port's oracle in full-row order,
+    and its model counters and component tables the oracle's."""
+    import numpy as np
+    from repro_torch.core import merged_engine_trace, run_sequential
+    from repro_torch.core import monitoring as mon
+    from repro_torch.core.registry import registry_of
+    t0 = time.perf_counter()
+    ow, oc, want = run_sequential(*built, max_events=2_000_000)
+    reg = registry_of(built[0])
+    for name, st in runs.items():
+        got = merged_engine_trace(st.trace, st.trace_n)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{label} {name}: merged trace != oracle")
+        c = st.counters.sum(0).cpu().numpy()
+        if not np.array_equal(c[mon.N_COUNTERS:],
+                              oc.numpy()[mon.N_COUNTERS:]):
+            raise AssertionError(f"{label} {name}: model counters "
+                                 f"{c[mon.N_COUNTERS:]} != oracle's "
+                                 f"{oc.numpy()[mon.N_COUNTERS:]}")
+        for f in reg.delta_schema:
+            a = getattr(st.world, f)[0].cpu().numpy()
+            b = getattr(ow, f).numpy()
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{label} {name}: world.{f} != oracle")
+    ties = len(want) - len({(r[0], r[1]) for r in want})
+    counts = {n: int(oc[i]) for n, i in reg.counters.items()
+              if i >= mon.N_COUNTERS}
+    print(f"[scenarios] {label}: {', '.join(runs)} == oracle in full-row "
+          f"order ({len(want)} events, {ties} rows share (time, seq); "
+          f"{counts}; oracle {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_scenarios(card: str) -> dict:
+    """The replica-cache and failure/repair models on the card: stitched,
+    fused and adaptive runs against the CPU run and the oracle; then the
+    failure model's log replica on every unit draw and int32 payload bit
+    patterns through both front ends."""
+    import torch
+    from repro_torch.core import Engine
+    from repro_torch.core.policy import ExecPolicy
+    from repro_torch.scenarios import cache, failures
+
+    out = {}
+    built, _ = cache.build_churn_scenario(**CACHE_KW)
+    print(f"[scenarios] cache: {CACHE_KW}, {built[3].n_lp} LPs, "
+          f"{cache.CACHE_REGISTRY.n_kinds} kinds", flush=True)
+    eng, st, ran, nums = run_model("cache stitched", built, card)
+    ms, ops, busy = profile_windows(eng, eng.init_state())
+    print(f"[scenarios] cache stitched: windows 0..10 {ms:.3f} ms/window "
+          f"profiled, {ops:.1f} device ops/window, device busy {busy:.4f} "
+          f"of the wall ({card})", flush=True)
+    _e, st_f, ran_f, nums_f = run_model("cache fused", built, card,
+                                        fused=True)
+    state_equal(st_f, st)
+    t0 = time.perf_counter()
+    state_equal(st, Engine(*built, trace_cap=65536,
+                           device="cpu").run_local())
+    print(f"[scenarios] cache: fused cuda == stitched cuda == stitched cpu "
+          f"(cpu {time.perf_counter() - t0:.1f} s)", flush=True)
+    oracle_equal("cache", built, {"stitched": st, "fused": st_f})
+    out["cache"] = dict(stitched=nums, fused=nums_f, ops_per_window=ops)
+
+    built, _ = failures.build_failure_scenario(**FAIL_KW)
+    print(f"[scenarios] failures: {FAIL_KW}, {built[3].n_lp} LPs, "
+          f"{failures.FAIL_REGISTRY.n_kinds} kinds", flush=True)
+    eng, st, ran, nums = run_model("failures stitched", built, card)
+    ms, ops, busy = profile_windows(eng, eng.init_state())
+    print(f"[scenarios] failures stitched: windows 0..10 {ms:.3f} "
+          f"ms/window profiled, {ops:.1f} device ops/window, device busy "
+          f"{busy:.4f} of the wall ({card})", flush=True)
+    _e, st_f, ran_f, nums_f = run_model("failures fused", built, card,
+                                        fused=True)
+    state_equal(st_f, st)
+    policy = ExecPolicy(ladder=FAIL_LADDER)
+    eng_a, st_a, ran_a, nums_a = run_model("failures adaptive", built, card,
+                                           policy=policy)
+    t0 = time.perf_counter()
+    state_equal(st, Engine(*built, trace_cap=65536,
+                           device="cpu").run_local())
+    eng_c = Engine(*built, trace_cap=65536, device="cpu")
+    state_equal(st_a, eng_c.run_adaptive(max_windows=200_000,
+                                         policy=policy))
+    if eng_c.adaptive_rungs != eng_a.adaptive_rungs:
+        raise AssertionError("failures adaptive: the rungs differ on the cpu")
+    rungs = {w: eng_a.adaptive_rungs.count(i)
+             for i, w in enumerate(FAIL_LADDER)}
+    print(f"[scenarios] failures: fused cuda == stitched cuda == stitched "
+          f"cpu, adaptive cuda == adaptive cpu (windows by width {rungs}; "
+          f"cpu {time.perf_counter() - t0:.1f} s)", flush=True)
+    oracle_equal("failures", built, {"stitched": st, "fused": st_f,
+                                     "adaptive": st_a})
+    out["failures"] = dict(stitched=nums, fused=nums_f, adaptive=nums_a,
+                           ops_per_window=ops)
+
+    # the log replica on every value of the unit draw, card against cpu
+    k = torch.arange(1 << 22, dtype=torch.int32)
+    u = (k.float() + 0.5) / float(1 << 22)
+    want = failures.xla_log(u)
+    got = failures.xla_log(u.cuda()).cpu()
+    n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    lib_diff = int((torch.log(u.cuda()).cpu().view(torch.int32)
+                    != want.view(torch.int32)).sum())
+    if n_diff:
+        raise AssertionError(f"xla_log: {n_diff} of {1 << 22} differ on the "
+                             f"card")
+    print(f"[scenarios] xla_log: cuda == cpu on all {1 << 22} unit draws "
+          f"(torch.log on the card differs on {lib_diff})", flush=True)
+    payload_bits(card)
+    return out
+
+
+def payload_bits(card: str) -> None:
+    """An int32 payload field with 31-bit, denormal and NaN bit patterns
+    through the stitched and fused engines on the card (8 agents) and the
+    oracle: every bit arrives."""
+    import dataclasses
+    import torch
+    from repro_torch.core import Engine, merged_engine_trace, run_sequential
+    from repro_torch.core import tensor_util as tu
+    from repro_torch.core.components import BUILTIN
+    from repro_torch.core.events import MAX_EMIT, empty_batch
+    from repro_torch.core.registry import (FieldSpec, PayloadSpec,
+                                           ScenarioBuilderBase)
+
+    reg = BUILTIN.extend()
+    reg.component("idsink", fields=dict(
+        sink_token=FieldSpec((), torch.int32, mutable=True),
+        sink_n=FieldSpec((), torch.int32, mutable=True)))
+    payload = PayloadSpec(("token", 0, torch.int32), "weight")
+    put = reg.kind("TOKEN_PUT", table="idsink", payload=payload)
+
+    @reg.on(put)
+    def h_token_put(env, world, counters, e):
+        s = tu.take(world.lp_res, e.agent, e.dst)
+        delta = env.delta(world, "idsink", s,
+                          sink_token=payload.get(e.payload, "token"),
+                          sink_n=tu.take(world.sink_n, e.agent, s) + 1)
+        return delta, counters, empty_batch((e.time.shape[0], MAX_EMIT),
+                                            device=e.time.device)
+
+    class Builder(ScenarioBuilderBase):
+        _registry = reg
+
+    tokens = [(1 << 31) - 1, 0x7F800001, 0x7FC00001, 0x7FFFFFFF, 1, 3,
+              0x007FFFFF, -5, -(1 << 31), 16777217, 0]
+    b = Builder()
+    sinks = [b.add_idsink() for _ in tokens]
+    for lp, tok in zip(sinks, tokens):
+        b.add_event(time=1 + lp % 3, kind=put, src=lp, dst=lp,
+                    payload=payload.pack(token=tok, weight=1.0))
+    built = b.build(n_agents=8, lookahead=1, t_end=20, pool_cap=64)
+    _w, _c, want = run_sequential(*built)
+    for fused in (False, True):
+        spec = dataclasses.replace(built[3], fused_select=fused)
+        st = Engine(*built[:3], spec, trace_cap=64, device="cuda").run_local()
+        got = st.world.sink_token[0].cpu().tolist()
+        if got != tokens or st.world.sink_n[0].cpu().tolist() != [1] * len(
+                tokens):
+            raise AssertionError(f"payload bits fused={fused}: {got}")
+        if merged_engine_trace(st.trace, st.trace_n) != want:
+            raise AssertionError(f"payload bits fused={fused}: trace")
+    bits = [hex(t & 0xFFFFFFFF) for t in tokens]
+    print(f"[scenarios] int32 payload bits {bits} arrive through the "
+          f"stitched and fused engines and the oracle ({card})", flush=True)
+
+
 # --------------------------------------------------------------- phase 3z
 ZOO_TOL = {"float32": dict(atol=2e-6, rtol=2e-6),
            "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -2142,6 +2399,7 @@ def main() -> int:
     phase_profile(card, fused=False)
     phase_profile(card, fused=True)
     phase_entry_point()
+    phase_scenarios(card)
     phase_model_path(card)
     served = phase_serve(card)
     phase_serve_entry()

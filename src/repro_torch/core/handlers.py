@@ -101,7 +101,7 @@ def start_queued_job(env, world, f, slot, e: Ev, out: Emits,
     return busy_v, mem_v, new_jq, new_qn
 
 
-def _set_slot(row: torch.Tensor, slot: torch.Tensor, value) -> torch.Tensor:
+def set_slot(row: torch.Tensor, slot: torch.Tensor, value) -> torch.Tensor:
     """``row.at[slot].set(value)`` per lane; out-of-range slots are dropped."""
     n = row.shape[1]
     ok = (slot >= 0) & (slot < n)
@@ -191,8 +191,8 @@ def register_builtin_handlers(reg: Registry) -> None:
         out = Emits(e)
         busy_v, mem_v, new_jq, new_qn = start_queued_job(env, world, f, slot,
                                                          e, out, 0)
-        busy = _set_slot(_row(world, "cpu_busy", e, f), slot, busy_v)
-        memr = _set_slot(_row(world, "cpu_mem", e, f), slot, mem_v)
+        busy = set_slot(_row(world, "cpu_busy", e, f), slot, busy_v)
+        memr = set_slot(_row(world, "cpu_mem", e, f), slot, mem_v)
         nlp = tu.f2i(e.payload[:, 3])
         nkind = tu.f2i(e.payload[:, 4])
         out.set(1, valid=nlp >= 0, time=e.time + env.delay(1), kind=nkind,

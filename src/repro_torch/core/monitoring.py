@@ -48,7 +48,8 @@ DROP_COUNTERS = (C_DROP_POOL, C_DROP_ROUTE, C_DROP_FLOW, C_DROP_QUEUE)
 BUILTIN_COUNTERS = (
     ("EVENTS", "events processed (all execution paths)"),
     ("MSGS_REMOTE", "emits routed to another agent"),
-    ("STALE", "stale (interrupted) flow-completion events"),
+    ("STALE", "stale (interrupted) flow-completion events — the paper's "
+              "Fig-2 cost driver"),
     ("INTERRUPTS", "bandwidth-share recomputations (max-min refair)"),
     ("JOBS_SUBMITTED", "jobs accepted by a compute farm"),
     ("JOBS_DONE", "jobs completed"),
@@ -64,21 +65,37 @@ BUILTIN_COUNTERS = (
     ("MIGRATIONS", "disk -> tape migrations"),
     ("WRITES", "storage writes"),
     ("MB_WRITTEN", "written megabytes (rounded to int)"),
-    ("LP_LOCAL", "emits destined to locally-owned LPs"),
+    ("LP_LOCAL", "emits destined to locally-owned LPs (scheduler locality "
+                 "signal)"),
     ("EXEC_SPILL", "safe events deferred past exec_cap to the next window"),
     ("BATCH_EXEC", "events executed through the grouped vectorized dispatch"),
     ("BATCH_FALLBACK", "conflicted events executed via the sequential "
                        "fallback"),
-    ("BATCH_ROWS", "component-table rows scattered by the batched merge"),
-    ("TRACE_DROP", "trace records lost to the fixed-cap trace buffer"),
-    ("RING_WRAP", "free-ring cursor wraps (head on insert, tail on release)"),
-    ("POOL_OCC", "live pool slots at window end"),
+    ("BATCH_ROWS", "component-table rows scattered by the batched merge — "
+                   "the per-window scatter-volume signal for the adaptive "
+                   "exec width"),
+    ("TRACE_DROP", "trace records lost to the fixed-cap trace buffer, or "
+                   "overwritten un-drained ring rows under streaming; "
+                   "oracle.merged_engine_trace and TraceStream refuse a "
+                   "truncated trace, so oracle-equivalence checks fail "
+                   "loudly instead of passing on a prefix"),
+    ("RING_WRAP", "free-ring cursor wraps (head on insert, tail on release) "
+                  "— pool-recycling pressure"),
+    ("POOL_OCC", "live pool slots at window end — the saturation signal the "
+                 "adaptive exec policy grows on"),
     ("POOL_FREE", "free pool slots at window end (insert headroom)"),
-    ("MIGRATE_OUT", "events shipped to another agent by a placement change"),
-    ("MIGRATE_IN", "migrated events received"),
-    ("PREEMPT", "shard-loss preemptions the fleet orchestrator detected"),
-    ("RESUME", "automatic checkpoint resumes after a preemption"),
-    ("RESHARD", "resumes that repacked onto a different device count"),
+    ("MIGRATE_OUT", "events shipped to another agent by a placement change "
+                    "(donor side, post route-cap)"),
+    ("MIGRATE_IN", "migrated events received (counted pre-insert, so "
+                   "sum(OUT) == sum(IN) globally even when the receiving "
+                   "pool overflows — the excess then lands in DROP_POOL on "
+                   "the receiver)"),
+    ("PREEMPT", "shard-loss preemptions the fleet orchestrator detected "
+                "(injected probe or a process death discovered at restart)"),
+    ("RESUME", "automatic checkpoint resumes the orchestrator completed "
+               "after a preemption"),
+    ("RESHARD", "resumes that repacked the unpadded checkpoint onto a "
+                "different device count than it was saved from"),
 )
 assert len(BUILTIN_COUNTERS) == N_COUNTERS
 

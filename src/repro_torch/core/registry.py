@@ -109,12 +109,15 @@ class PayloadSpec:
             raise RegistryError(f"unknown payload field {name!r}; "
                                 f"declared: {self.names}") from None
 
-    def pack(self, **values) -> np.ndarray:
-        """Positional float32 payload row from named values (host side)."""
+    def _check_known(self, values):
         unknown = set(values) - set(self.names)
         if unknown:
             raise RegistryError(f"unknown payload field(s) {sorted(unknown)}; "
                                 f"declared: {self.names}")
+
+    def pack(self, **values) -> np.ndarray:
+        """Positional float32 payload row from named values (host side)."""
+        self._check_known(values)
         row = np.zeros((len(self.names),), np.float32)
         for i, n in enumerate(self.names):
             v = values.get(n, self.defaults[n])
@@ -122,6 +125,27 @@ class PayloadSpec:
                 row[i] = np.asarray(int(v), np.int32).view(np.float32)
             else:
                 row[i] = v
+        return row
+
+    def pack_tensor(self, **values) -> torch.Tensor:
+        """A (B, PAYLOAD) float32 payload batch from named (B,) tensors or
+        scalars (the tensor counterpart of :meth:`pack`; the reference's
+        ``pack_jax``). Int32 fields are stored as their raw bits
+        (``Tensor.view``), never converted numerically; the batch is only
+        copied into, so every bit pattern survives."""
+        self._check_known(values)
+        tensors = [v for v in values.values() if isinstance(v, torch.Tensor)]
+        if not tensors:
+            raise RegistryError("pack_tensor needs at least one (B,) tensor")
+        lanes = torch.broadcast_shapes(*(v.shape for v in tensors))
+        row = torch.zeros(lanes + (PAYLOAD,), dtype=torch.float32,
+                          device=tensors[0].device)
+        for i, n in enumerate(self.names):
+            v = values.get(n, self.defaults[n])
+            if self.dtypes[n] == torch.int32:
+                v = torch.as_tensor(v, device=row.device).to(
+                    torch.int32).view(torch.float32)
+            row[..., i] = v
         return row
 
     def get(self, payload: torch.Tensor, name: str) -> torch.Tensor:
@@ -223,6 +247,7 @@ class Registry:
         self._handlers: dict[int, Callable] = {}
         self._counters: dict[str, int] = {
             name: i for i, (name, _doc) in enumerate(_mon.BUILTIN_COUNTERS)}
+        self._counter_docs: dict[str, str] = dict(_mon.BUILTIN_COUNTERS)
         self._sealed = False
         self.deferred_handler_modules: list[str] = []
         self._cache: dict[str, Any] = {}
@@ -232,7 +257,8 @@ class Registry:
         if self._sealed:
             raise RegistryError(
                 f"registry is sealed (a World/Delta struct was already "
-                f"generated); cannot add {what}")
+                f"generated); cannot add {what}. Use .extend() to grow a "
+                f"sealed registry.")
 
     def dim(self, name: str, default: int) -> str:
         self._check_open(f"dim {name!r}")
@@ -305,13 +331,41 @@ class Registry:
                 return k
         raise RegistryError(f"unknown event kind {ref!r}")
 
+    def counter(self, name: str, doc: str = "") -> int:
+        """Declare a named monitoring counter; returns its index (the
+        builtin counters come first, each declaration appends). Handlers
+        bump it with ``mon.bump``; the engine and the oracle size their
+        counter vectors with :attr:`n_counters`."""
+        self._check_open(f"counter {name!r}")
+        if not name.isidentifier():
+            raise RegistryError(f"counter name {name!r} must be an identifier")
+        if name in self._counters:
+            raise RegistryError(f"duplicate counter {name!r} "
+                                f"(index {self._counters[name]})")
+        idx = len(self._counters)
+        self._counters[name] = idx
+        self._counter_docs[name] = doc
+        return idx
+
     @property
     def counters(self) -> dict:
         return dict(self._counters)
 
     @property
+    def counter_docs(self) -> dict:
+        return dict(self._counter_docs)
+
+    @property
     def n_counters(self) -> int:
         return len(self._counters)
+
+    def counter_index(self, name: str) -> int:
+        try:
+            return self._counters[name]
+        except KeyError:
+            raise RegistryError(
+                f"unknown counter {name!r}; declared: "
+                f"{sorted(self._counters)}") from None
 
     def on(self, kind) -> Callable:
         """Decorator registering ``fn(env, world, counters, e)`` for ``kind``."""
@@ -324,6 +378,20 @@ class Registry:
             return fn
 
         return register
+
+    def extend(self) -> "Registry":
+        """An unsealed copy inheriting dims, components, kinds, handlers and
+        counters: the extension point for models defined outside core. This
+        registry stays as it was."""
+        self._import_deferred()   # so its deferred handlers are copied
+        child = Registry()
+        child._dims = dict(self._dims)
+        child._components = dict(self._components)
+        child._kinds = list(self._kinds)
+        child._handlers = dict(self._handlers)
+        child._counters = dict(self._counters)
+        child._counter_docs = dict(self._counter_docs)
+        return child
 
     # ----------------------------------------------------------------- freeze
     def _seal(self):
@@ -402,6 +470,18 @@ class Registry:
     @property
     def mutable_fields(self) -> tuple:
         return tuple(self.delta_schema)
+
+    def sync_plan(self) -> dict:
+        """World field -> sync rule: ``"lp"`` (per-LP owner-wins), a
+        component name (owner-wins with that table's mask) or
+        ``"replicated"`` (a build-time input, never synced)."""
+        self._seal()
+        plan = {f: "replicated" for f in LP_FIELDS}
+        plan["lp_state"] = plan["lp_lvt"] = "lp"
+        for comp in self._components.values():
+            for fname, fs in comp.fields.items():
+                plan[fname] = comp.name if fs.mutable else "replicated"
+        return plan
 
     def resolve_shape(self, shape: tuple, dims: dict) -> tuple:
         return tuple(dims[d] if isinstance(d, str) else d for d in shape)
@@ -574,6 +654,15 @@ class ScenarioBuilderBase:
         self._events: list[dict] = []
         self._seq = 0
 
+    def __getattr__(self, name):
+        # add_<component> for components without a bespoke wrapper
+        if name.startswith("add_"):
+            comp = type(self)._registry.components.get(name[len("add_"):])
+            if comp is not None:
+                return lambda **kw: self.add_component(comp.name, **kw)
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
+
     def _new_lp(self, kind: int, res: int, ctx: int) -> int:
         self._lps.append(dict(kind=kind, res=res, ctx=ctx))
         return len(self._lps) - 1
@@ -598,6 +687,10 @@ class ScenarioBuilderBase:
                 raise RegistryError(
                     f"{name}.{fname} row of length {v.shape[0]} exceeds the "
                     f"declared dim {shape[0]}")
+            if len(shape) >= 2 and v.shape[1:] != shape[1:]:
+                raise RegistryError(
+                    f"{name}.{fname} trailing shape {v.shape[1:]} must match "
+                    f"declared {shape[1:]}")
         self._rows[name].append(dict(fields))
         return self._new_lp(comp.lp_kind, len(self._rows[name]) - 1, ctx)
 

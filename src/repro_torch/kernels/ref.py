@@ -168,15 +168,14 @@ class FlowOrder(NamedTuple):
 LEFT_TO_RIGHT = FlowOrder()
 
 # XLA:CPU's order for an unbatched ``inc.T @ x`` over F flows and L links,
-# found by probing its compiled matvec (tests/test_torch_network.py). It
-# depends on F and on L: ``_UNBATCHED_ORDER[F]`` lists (first L, last L,
-# order). F = 48-52, 56, 64-68, 72, 96 and 128 were probed at every L from
-# 1 to 64; F = 33-80 at L = 1-5, 8-10, 16, 32 and 64. Left to right in the
-# reference: F <= 42 at every L probed, F <= 49 from L = 2, and the gaps in
-# the table's ranges of L. Some sum their last flows one at a time after
-# the tail lanes (``trailing``; the bridge's shapes below). Every other
-# (F, L) probed sums in a tree of another form, or was not probed at that
-# L, and the port sums it left to right (ROADMAP.md, reference caveats).
+# read off its compiled matvec (jax 0.9.0) at every F = 43-128 and L = 1-64
+# by tools/probe_flow_order.py. ``_UNBATCHED_ORDER[F]`` lists (first L,
+# last L, order). Every tree probed there has the FlowOrder form: a head of
+# 32, 48, 64, 96 or 128 flows in one of the six block orders below, then 1,
+# 2, 4 or 8 tail lanes and up to 8 trailing flows; the gaps between the
+# ranges sum left to right. The probe found left to right at every F <= 42
+# and L <= 64 too. F > 128 and L > 64 are not probed, and the port sums
+# them left to right (ROADMAP.md, reference caveats).
 _ORDER_48 = FlowOrder(48, (0, 2, 4, 3, 1, 5))
 _ORDER_64 = FlowOrder(64, (0, 4, 5, 1, 6, 2, 7, 3))
 _ORDER_96 = FlowOrder(96, (0, 4, 8, 5, 1, 9, 6, 2, 10, 7, 3, 11))
@@ -184,47 +183,135 @@ _ORDER_128 = FlowOrder(128, (0, 4, 8, 12, 5, 1, 9, 13, 6, 2, 10, 14, 7, 3,
                              11, 15))
 _ORDER_128_CHAINS = FlowOrder(128, (0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14,
                                     3, 7, 11, 15), chains=4)
-_UNBATCHED_ORDER = {
-    44: ((1, 1, FlowOrder(32, (0, 1, 2, 3), tail_lanes=4)),),
-    **dict.fromkeys((48, 49), ((1, 1, _ORDER_48),)),
-    **dict.fromkeys((50, 51), ((1, 1, _ORDER_48), (3, 64, _ORDER_48))),
-    52: ((1, 1, _ORDER_48._replace(tail_lanes=2)), (3, 8, _ORDER_48),
-         (9, 64, _ORDER_48._replace(tail_lanes=2))),
-    56: ((1, 1, _ORDER_48._replace(tail_lanes=4)), (3, 8, _ORDER_48),
-         (9, 64, _ORDER_48._replace(tail_lanes=4))),
-    60: ((1, 1, _ORDER_48._replace(tail_lanes=4)),
-         (9, 64, _ORDER_48._replace(tail_lanes=4))),
-    64: ((1, 1, _ORDER_64), (2, 8, _ORDER_48), (9, 64, _ORDER_64)),
-    **dict.fromkeys((65, 66, 67), ((1, 64, _ORDER_64),)),
-    68: ((1, 1, _ORDER_64._replace(tail_lanes=2)), (2, 8, _ORDER_64),
-         (9, 64, _ORDER_64._replace(tail_lanes=2))),
-    72: ((1, 1, _ORDER_64._replace(tail_lanes=4)), (2, 8, _ORDER_64),
-         (9, 64, _ORDER_64._replace(tail_lanes=4))),
-    76: ((1, 1, _ORDER_64._replace(tail_lanes=4)),
-         (9, 64, _ORDER_64._replace(tail_lanes=4))),
-    80: ((1, 1, _ORDER_64._replace(tail_lanes=8)),),
-    96: ((1, 1, _ORDER_96), (2, 8, _ORDER_64), (9, 64, _ORDER_96)),
-    128: ((1, 1, _ORDER_128), (2, 8, _ORDER_96), (9, 64, _ORDER_128_CHAINS)),
-}
-# The workload bridge's shapes, F = 2n flows over L = n links, probed at
-# L = n for n = 29-63 (n = 20-28, 30, 32-34, 36, 38, 40, 45, 48 and 64 sum
-# as tabled above or left to right). Head and block order by F, the tail
-# lanes and trailing flows by F - head: (F, head order, lanes, trailing).
-for _F, _head, _W, _T in (
-        (58, _ORDER_48, 4, 2), (62, _ORDER_48, 4, 2), (70, _ORDER_64, 2, 2),
-        (74, _ORDER_64, 4, 2), (78, _ORDER_64, 4, 2), (82, _ORDER_64, 8, 2),
-        (84, _ORDER_64, 4, 0), (86, _ORDER_64, 4, 2), (88, _ORDER_64, 8, 0),
-        (92, _ORDER_64, 8, 4), (94, _ORDER_64, 8, 6), (98, _ORDER_96, 1, 0),
-        (100, _ORDER_96, 2, 0), (102, _ORDER_96, 2, 2),
-        (104, _ORDER_96, 4, 0), (106, _ORDER_96, 4, 2),
-        (108, _ORDER_96, 4, 0), (110, _ORDER_96, 4, 2),
-        (112, _ORDER_96, 8, 0), (114, _ORDER_96, 8, 2),
-        (116, _ORDER_96, 4, 0), (118, _ORDER_96, 4, 2),
-        (120, _ORDER_96, 8, 0), (122, _ORDER_96, 8, 2),
-        (124, _ORDER_96, 8, 4), (126, _ORDER_96, 8, 6)):
-    _UNBATCHED_ORDER[_F] = ((_F // 2, _F // 2,
-                             _head._replace(tail_lanes=_W, trailing=_T)),)
-del _F, _head, _W, _T
+_ORDER_32 = FlowOrder(32, (0, 1, 2, 3))
+# F: ((first L, last L, head, tail lanes, trailing flows), ...)
+_UNBATCHED_ORDER = {F: tuple((lo, hi, head._replace(tail_lanes=W, trailing=T))
+                             for lo, hi, head, W, T in rows)
+                    for F, rows in {
+    43: ((1, 1, _ORDER_32, 4, 3),),
+    44: ((1, 1, _ORDER_32, 4, 0),),
+    45: ((1, 1, _ORDER_32, 4, 1),),
+    46: ((1, 1, _ORDER_32, 4, 2),),
+    47: ((1, 1, _ORDER_32, 4, 3),),
+    48: ((1, 1, _ORDER_48, 1, 0),),
+    49: ((1, 1, _ORDER_48, 1, 0),),
+    50: ((1, 1, _ORDER_48, 1, 0), (3, 64, _ORDER_48, 1, 0)),
+    51: ((1, 1, _ORDER_48, 1, 0), (3, 64, _ORDER_48, 1, 0)),
+    52: ((1, 1, _ORDER_48, 2, 0), (3, 8, _ORDER_48, 1, 0),
+         (9, 64, _ORDER_48, 2, 0)),
+    53: ((1, 1, _ORDER_48, 2, 1), (3, 64, _ORDER_48, 2, 1)),
+    54: ((1, 1, _ORDER_48, 2, 2), (3, 64, _ORDER_48, 2, 2)),
+    55: ((1, 1, _ORDER_48, 2, 3), (3, 8, _ORDER_48, 2, 1),
+         (9, 64, _ORDER_48, 2, 3)),
+    56: ((1, 1, _ORDER_48, 4, 0), (3, 8, _ORDER_48, 1, 0),
+         (9, 64, _ORDER_48, 4, 0)),
+    57: ((1, 1, _ORDER_48, 4, 1), (3, 64, _ORDER_48, 4, 1)),
+    58: ((1, 1, _ORDER_48, 4, 2), (3, 64, _ORDER_48, 4, 2)),
+    59: ((1, 1, _ORDER_48, 4, 3), (3, 64, _ORDER_48, 4, 3)),
+    60: ((1, 1, _ORDER_48, 4, 0), (2, 8, _ORDER_48, 4, 4),
+         (9, 64, _ORDER_48, 4, 0)),
+    61: ((1, 64, _ORDER_48, 4, 1),),
+    62: ((1, 64, _ORDER_48, 4, 2),),
+    63: ((1, 64, _ORDER_48, 4, 3),),
+    64: ((1, 1, _ORDER_64, 1, 0), (2, 8, _ORDER_48, 1, 0),
+         (9, 64, _ORDER_64, 1, 0)),
+    65: ((1, 64, _ORDER_64, 1, 0),),
+    66: ((1, 64, _ORDER_64, 1, 0),),
+    67: ((1, 64, _ORDER_64, 1, 0),),
+    68: ((1, 1, _ORDER_64, 2, 0), (2, 8, _ORDER_64, 1, 0),
+         (9, 64, _ORDER_64, 2, 0)),
+    69: ((1, 64, _ORDER_64, 2, 1),),
+    70: ((1, 64, _ORDER_64, 2, 2),),
+    71: ((1, 1, _ORDER_64, 2, 3), (2, 8, _ORDER_64, 2, 1),
+         (9, 64, _ORDER_64, 2, 3)),
+    72: ((1, 1, _ORDER_64, 4, 0), (2, 8, _ORDER_64, 1, 0),
+         (9, 64, _ORDER_64, 4, 0)),
+    73: ((1, 64, _ORDER_64, 4, 1),),
+    74: ((1, 64, _ORDER_64, 4, 2),),
+    75: ((1, 64, _ORDER_64, 4, 3),),
+    76: ((1, 1, _ORDER_64, 4, 0), (2, 8, _ORDER_64, 4, 4),
+         (9, 64, _ORDER_64, 4, 0)),
+    77: ((1, 64, _ORDER_64, 4, 1),),
+    78: ((1, 64, _ORDER_64, 4, 2),),
+    79: ((1, 64, _ORDER_64, 4, 3),),
+    80: ((1, 1, _ORDER_64, 8, 0), (2, 8, _ORDER_64, 4, 8),
+         (9, 64, _ORDER_64, 8, 0)),
+    81: ((1, 64, _ORDER_64, 8, 1),),
+    82: ((1, 64, _ORDER_64, 8, 2),),
+    83: ((1, 64, _ORDER_64, 8, 3),),
+    84: ((1, 1, _ORDER_64, 4, 0), (2, 8, _ORDER_64, 4, 4),
+         (9, 64, _ORDER_64, 4, 0)),
+    85: ((1, 64, _ORDER_64, 4, 1),),
+    86: ((1, 64, _ORDER_64, 4, 2),),
+    87: ((1, 64, _ORDER_64, 4, 3),),
+    88: ((1, 1, _ORDER_64, 8, 0), (2, 8, _ORDER_64, 8, 8),
+         (9, 64, _ORDER_64, 8, 0)),
+    89: ((1, 64, _ORDER_64, 8, 1),),
+    90: ((1, 64, _ORDER_64, 8, 2),),
+    91: ((1, 64, _ORDER_64, 8, 3),),
+    92: ((1, 1, _ORDER_64, 8, 4), (2, 4, _ORDER_64, 4, 4),
+         (5, 6, _ORDER_64, 8, 4), (7, 8, _ORDER_64, 4, 4),
+         (9, 64, _ORDER_64, 8, 4)),
+    93: ((1, 1, _ORDER_64, 8, 5), (2, 4, _ORDER_64, 4, 1),
+         (5, 6, _ORDER_64, 8, 5), (7, 8, _ORDER_64, 4, 1),
+         (9, 64, _ORDER_64, 8, 5)),
+    94: ((1, 1, _ORDER_64, 8, 6), (2, 4, _ORDER_64, 4, 2),
+         (5, 6, _ORDER_64, 8, 6), (7, 8, _ORDER_64, 4, 2),
+         (9, 64, _ORDER_64, 8, 6)),
+    95: ((1, 1, _ORDER_64, 8, 7), (2, 4, _ORDER_64, 4, 3),
+         (5, 6, _ORDER_64, 8, 7), (7, 8, _ORDER_64, 4, 3),
+         (9, 64, _ORDER_64, 8, 7)),
+    96: ((1, 1, _ORDER_96, 1, 0), (2, 8, _ORDER_64, 1, 0),
+         (9, 64, _ORDER_96, 1, 0)),
+    97: ((1, 64, _ORDER_96, 1, 0),),
+    98: ((1, 64, _ORDER_96, 1, 0),),
+    99: ((1, 64, _ORDER_96, 1, 0),),
+    100: ((1, 1, _ORDER_96, 2, 0), (2, 8, _ORDER_96, 1, 0),
+          (9, 64, _ORDER_96, 2, 0)),
+    101: ((1, 64, _ORDER_96, 2, 1),),
+    102: ((1, 64, _ORDER_96, 2, 2),),
+    103: ((1, 1, _ORDER_96, 2, 3), (2, 8, _ORDER_96, 2, 1),
+          (9, 64, _ORDER_96, 2, 3)),
+    104: ((1, 1, _ORDER_96, 4, 0), (2, 8, _ORDER_96, 1, 0),
+          (9, 64, _ORDER_96, 4, 0)),
+    105: ((1, 64, _ORDER_96, 4, 1),),
+    106: ((1, 64, _ORDER_96, 4, 2),),
+    107: ((1, 64, _ORDER_96, 4, 3),),
+    108: ((1, 1, _ORDER_96, 4, 0), (2, 8, _ORDER_96, 4, 4),
+          (9, 64, _ORDER_96, 4, 0)),
+    109: ((1, 64, _ORDER_96, 4, 1),),
+    110: ((1, 64, _ORDER_96, 4, 2),),
+    111: ((1, 64, _ORDER_96, 4, 3),),
+    112: ((1, 1, _ORDER_96, 8, 0), (2, 8, _ORDER_96, 4, 8),
+          (9, 64, _ORDER_96, 8, 0)),
+    113: ((1, 64, _ORDER_96, 8, 1),),
+    114: ((1, 64, _ORDER_96, 8, 2),),
+    115: ((1, 64, _ORDER_96, 8, 3),),
+    116: ((1, 1, _ORDER_96, 4, 0), (2, 8, _ORDER_96, 4, 4),
+          (9, 64, _ORDER_96, 4, 0)),
+    117: ((1, 64, _ORDER_96, 4, 1),),
+    118: ((1, 64, _ORDER_96, 4, 2),),
+    119: ((1, 64, _ORDER_96, 4, 3),),
+    120: ((1, 1, _ORDER_96, 8, 0), (2, 8, _ORDER_96, 8, 8),
+          (9, 64, _ORDER_96, 8, 0)),
+    121: ((1, 64, _ORDER_96, 8, 1),),
+    122: ((1, 64, _ORDER_96, 8, 2),),
+    123: ((1, 64, _ORDER_96, 8, 3),),
+    124: ((1, 1, _ORDER_96, 8, 4), (2, 4, _ORDER_96, 4, 4),
+          (5, 6, _ORDER_96, 8, 4), (7, 8, _ORDER_96, 4, 4),
+          (9, 64, _ORDER_96, 8, 4)),
+    125: ((1, 1, _ORDER_96, 8, 5), (2, 4, _ORDER_96, 4, 1),
+          (5, 6, _ORDER_96, 8, 5), (7, 8, _ORDER_96, 4, 1),
+          (9, 64, _ORDER_96, 8, 5)),
+    126: ((1, 1, _ORDER_96, 8, 6), (2, 4, _ORDER_96, 4, 2),
+          (5, 6, _ORDER_96, 8, 6), (7, 8, _ORDER_96, 4, 2),
+          (9, 64, _ORDER_96, 8, 6)),
+    127: ((1, 1, _ORDER_96, 8, 7), (2, 4, _ORDER_96, 4, 3),
+          (5, 6, _ORDER_96, 8, 7), (7, 8, _ORDER_96, 4, 3),
+          (9, 64, _ORDER_96, 8, 7)),
+    128: ((1, 1, _ORDER_128, 1, 0), (2, 8, _ORDER_96, 1, 0),
+          (9, 64, _ORDER_128_CHAINS, 1, 0)),
+}.items()}
 
 
 def flow_order(n_flows: int, n_links: int, n_lanes: int) -> FlowOrder:

@@ -385,11 +385,10 @@ def test_maxmin_rates_one_lane_bit_equal(F):
 
 
 def test_maxmin_rates_one_lane_caveat_is_bounded():
-    """60 flows is an F whose one-lane order is not reproduced (ROADMAP.md,
-    reference caveats): the rates differ from the reference in some lanes,
-    by at most 8 ulps."""
-    worst, differ = _one_lane_ulps(60, 8, 24, 60)
-    assert differ > 0 and worst <= 8
+    """(60, 8), once a shape whose one-lane order the port did not
+    reproduce, is tabled: bit for bit. The gap of a shape still untabled
+    is bounded in tests/test_torch_flow_order.py."""
+    assert _one_lane_ulps(60, 8, 24, 60) == (0, 0)
 
 
 @pytest.mark.parametrize("n", [29, 31, 35, 37, 39, 41, 42, 43, 44, 46, 47,

@@ -105,14 +105,28 @@ def test_maxmin_rates_equal_reference_at_workload_shapes(F, L):
             err_msg=f"lane {b}")
 
 
-TABLED = sorted({(F, L) for F, ranges in ref._UNBATCHED_ORDER.items()
-                 for lo, hi, _order in ranges for L in (lo, hi)})
+# A fixed sample of tabled shapes, each at an end of a range of link
+# counts, up to the workload's widest (64 links); tests/test_torch_flow_order.py
+# checks both ends of every range.
+TABLED = [(44, 1), (48, 1), (49, 1), (50, 1), (50, 3), (50, 64), (51, 1),
+          (51, 3), (51, 64), (52, 1), (52, 3), (52, 8), (52, 9), (52, 64),
+          (56, 1), (56, 3), (56, 8), (56, 9), (56, 64), (58, 29), (60, 1),
+          (60, 9), (60, 64), (62, 31), (64, 1), (64, 2), (64, 8), (64, 9),
+          (64, 64), (65, 1), (65, 64), (66, 1), (66, 64), (67, 1), (67, 64),
+          (68, 1), (68, 2), (68, 8), (68, 9), (68, 64), (70, 35), (72, 1),
+          (72, 2), (72, 8), (72, 9), (72, 64), (74, 37), (76, 1), (76, 9),
+          (76, 64), (78, 39), (80, 1), (82, 41), (84, 42), (86, 43),
+          (88, 44), (92, 46), (94, 47), (96, 1), (96, 2), (96, 8), (96, 9),
+          (96, 64), (98, 49), (100, 50), (102, 51), (104, 52), (106, 53),
+          (108, 54), (110, 55), (112, 56), (114, 57), (116, 58), (118, 59),
+          (120, 60), (122, 61), (124, 62), (126, 63), (128, 1), (128, 2),
+          (128, 8), (128, 9), (128, 64)]
 
 
 @pytest.mark.parametrize("F,L", TABLED)
 def test_one_lane_order_at_tabled_link_counts(F, L):
-    """Every tabled one-lane order at both ends of its range of link
-    counts, up to the workload's widest (64 links)."""
+    """Tabled one-lane orders at ends of their ranges of link counts."""
+    assert ref.flow_order(F, L, 1) != ref.LEFT_TO_RIGHT
     links, bw, active = flows(6, F, L, F * 100 + L)
     inc_t, bw_t, act_t = port_inputs(links, bw, active, L)
     inc_j = np.asarray(inc_t)
@@ -132,7 +146,11 @@ def test_flow_order_is_the_kernels_contract():
     assert ref.flow_order(128, 1, 1) == ref._ORDER_128
     assert ref.flow_order(128, 64, 1) == ref._ORDER_128_CHAINS
     assert ref.flow_order(128, 4, 2) == ref.LEFT_TO_RIGHT
-    assert ref.flow_order(60, 8, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(60, 8, 1) == ref._ORDER_48._replace(
+        tail_lanes=4, trailing=4)
+    assert ref.flow_order(60, 65, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(129, 4, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(42, 7, 1) == ref.LEFT_TO_RIGHT
     for F, ranges in ref._UNBATCHED_ORDER.items():
         for lo, hi, order in ranges:
             assert 1 <= lo <= hi <= 64
