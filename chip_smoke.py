@@ -96,6 +96,19 @@ checkout of the repository). Phases, each of which raises on failure:
    the oracle; then ``failures.xla_log`` on all 2^22 unit draws, card
    against CPU, and int32 payload bit patterns (31-bit, denormal, NaN)
    through both front ends;
+4f. the host layer on phase 4's stitched ``tiered_grid``: the run streamed
+   through a 512-row trace ring (drained every 16 windows), metrics every
+   32 windows and a checkpoint every 64, equal to phase 4's card state and
+   merged trace with C_TRACE_DROP 0; a resume from the first checkpoint
+   past the ring into a fresh engine, equal to the streamed run (state,
+   trace, metrics records); a placement at window 128 (the streamed run's
+   checkpoint, restored into a fresh streamed engine) from the counters'
+   performance values (``route_rank`` over the whole pool), its streamed
+   continuation equal to the oracle; then ``simulate t0t1`` with a 32-row
+   ring killed by SIGKILL after the checkpoint at window 40, and resumed
+   on the card and on the CPU to the uninterrupted line. It prints ms a
+   window and events/s streamed and not, host reads a window, ring copies,
+   ms and bytes a checkpoint, ms a restore and ms a migration;
 4z. the model path at full width and 2 layers: hymba-1.5b (B 2, S 2048) and
    rwkv6-7b (B 2, S 1024) in float32 with TF32 off, one set of random
    weights on the card (the kernels) and on the CPU (the plain versions):
@@ -1388,10 +1401,13 @@ def phase_workload(card: str) -> dict:
 
 
 # --------------------------------------------------------------- phase 4
-def state_equal(a, b) -> None:
-    """Byte equality of two port states (floats by bit pattern)."""
+def state_equal(a, b, parts=None) -> None:
+    """Byte equality of two port states (floats by bit pattern), or of the
+    named ``parts`` of them."""
     from repro_torch.convert import state_to_numpy
     sa, sb = state_to_numpy(a), state_to_numpy(b)
+    if parts is not None:
+        sa = {k: sa[k] for k in parts}
 
     def walk(x, y, path):
         if isinstance(x, dict):
@@ -1428,6 +1444,8 @@ def run_tiered(card: str, fused: bool):
     ran = launches()
     c = st.counters.sum(0).cpu()
     windows, events = int(st.windows[0]), int(c[mon.C_EVENTS])
+    print(f"[tiered_grid] {label} cuda: host reads/window "
+          f"{eng.host_reads / windows:.4f}", flush=True)
     print(f"[tiered_grid] {label} cuda: windows={windows} events={events} "
           f"wall={wall:.3f} s events/s={events / wall:.1f} "
           f"windows/s={windows / wall:.2f} launches={ran} "
@@ -1440,7 +1458,8 @@ def run_tiered(card: str, fused: bool):
         raise AssertionError(f"maxmin_rates never launched on the {label} "
                              f"path")
     maxmin_routes(label, ran, "maxmin_warp_kernel")
-    return st, ran, dict(windows=windows, events=events, wall=wall)
+    return st, ran, dict(windows=windows, events=events, wall=wall,
+                         host_reads=eng.host_reads)
 
 
 def maxmin_routes(label: str, ran: dict, kernel: str) -> dict:
@@ -1850,6 +1869,269 @@ def payload_bits(card: str) -> None:
     bits = [hex(t & 0xFFFFFFFF) for t in tokens]
     print(f"[scenarios] int32 payload bits {bits} arrive through the "
           f"stitched and fused engines and the oracle ({card})", flush=True)
+
+
+# --------------------------------------------------------------- phase 4f
+# The host layer on the stitched tiered Grid of phase 4: a 512-row ring
+# drained every 16 windows (and whenever a window of 256 rows could
+# overrun it), metrics every 32 windows, a checkpoint every 64; a resume
+# from the first checkpoint past the ring; a placement at the checkpoint
+# of window 128. Then the CLI's crash harness on the card, resumed on the
+# card and on the CPU.
+RING, DRAIN_EVERY, METRICS_EVERY, CK_EVERY, MIGRATE_AT = 512, 16, 32, 64, 128
+CLI_T0T1 = ["t0t1", "--agents", "4", "--bandwidths", "8.0", "--exec-cap",
+            "32", "--stream-trace", "32"]
+
+
+def streamed_engine(built, dev: str, ckdir: str, every: int | None = None,
+                    **kw):
+    """An engine with a fresh trace stream, metrics stream and timed
+    checkpointer (and the hooks ``kw``); ``eng.checkpointer.save_ms`` holds
+    each save's ms."""
+    import torch
+    from repro_torch.checkpoint import SimCheckpointer
+    from repro_torch.core import Engine, MetricsStream, TraceStream
+
+    class Timed(SimCheckpointer):
+        def save_sim(self, window, state, **kw):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save_sim(window, state, **kw)
+            self.save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ck = Timed(ckdir, every=CK_EVERY if every is None else every, keep=64)
+    ck.save_ms = []
+    return Engine(*built, trace_cap=RING, device=dev,
+                  trace_stream=TraceStream(),
+                  metrics_stream=MetricsStream(METRICS_EVERY),
+                  drain_every=DRAIN_EVERY, checkpointer=ck, **kw)
+
+
+def no_drop(label: str, st) -> None:
+    from repro_torch.core import monitoring as mon
+    c = st.counters.sum(0).cpu()
+    for i in mon.DROP_COUNTERS + (mon.C_TRACE_DROP,):
+        if int(c[i]) != 0:
+            raise AssertionError(f"{label}: counter "
+                                 f"{mon.BUILTIN_COUNTERS[i][0]} = {int(c[i])}")
+
+
+def sync(dev: str) -> None:
+    import torch
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_streams(card: str, built, main_run: dict, ckdir: str,
+                  dev: str = "cuda") -> dict:
+    """The streamed run against phase 4's buffered one, then the resume."""
+    import numpy as np
+    from repro_torch.core import merged_engine_trace
+    from repro_torch.core import monitoring as mon
+
+    eng = streamed_engine(built, dev, ckdir)
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    st = eng.run_local()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    ran = launches()
+    ts, ms = eng.trace_stream, eng.metrics_stream
+    windows = int(st.windows[0])
+    events = int(st.counters[:, mon.C_EVENTS].sum())
+    no_drop("streamed", st)
+    if int(st.trace_n.max()) <= RING:
+        raise AssertionError(f"streamed: trace_n {st.trace_n.tolist()} never "
+                             f"passed the {RING}-row ring")
+    base = main_run["state"]
+    if ts.merged() != merged_engine_trace(base.trace, base.trace_n):
+        raise AssertionError("streamed merged trace != phase 4's buffered")
+    state_equal(st, base, parts=("world", "pool", "counters"))
+    if ms.lines[-1]["counters"] != mon.snapshot(st.counters):
+        raise AssertionError("the final metrics record != the counters")
+    missing = [k for k in STITCHED_HOOKS if ran[k] == 0]
+    if missing:
+        raise AssertionError(f"streamed: never launched {missing}")
+    base_ms = main_run["wall"] / main_run["windows"] * 1e3
+    print(f"[streams] tiered_grid streamed {dev}: {windows} windows, "
+          f"{events} events, trace_n {st.trace_n.tolist()} through a "
+          f"{RING}-row ring, {len(ms.lines)} metrics records; "
+          f"{wall / windows * 1e3:.3f} ms/window, {events / wall:.1f} "
+          f"events/s (unstreamed, phase 4: {base_ms:.3f} ms/window, "
+          f"{main_run['events'] / main_run['wall']:.1f} events/s); host "
+          f"reads/window {eng.host_reads / windows:.4f} (unstreamed "
+          f"{main_run['host_reads'] / main_run['windows']:.4f}); "
+          f"{eng.drains} ring copies, {eng.drain_bytes} bytes; launches "
+          f"{ran} ({card})", flush=True)
+    print("[streams] streamed merged trace == phase 4's buffered trace; "
+          "world, pool, counters == phase 4's card state; final metrics "
+          "record == snapshot of the counters; C_TRACE_DROP 0", flush=True)
+    ck = eng.checkpointer
+    sizes = [os.path.getsize(os.path.join(ckdir, f"step_{s:09d}",
+                                          "host_0.npz"))
+             for s in ck.all_steps()]
+    print(f"[streams] {len(ck.save_ms)} checkpoint saves (steps "
+          f"{ck.all_steps()}): {np.mean(ck.save_ms):.3f} ms each (max "
+          f"{max(ck.save_ms):.3f}), {int(np.mean(sizes))} bytes each "
+          f"({card})", flush=True)
+
+    # the first checkpoint past the ring, into a fresh engine and streams
+    past = [s for s in ck.all_steps()
+            if int(ck._read_step(s)[1]["state/trace_n"].max()) > RING]
+    if not past:
+        raise AssertionError(f"no checkpoint past the ring in "
+                             f"{ck.all_steps()}")
+    step = past[0]
+    eng2 = streamed_engine(built, dev, ckdir, every=0)
+    sync(dev)
+    t0 = time.perf_counter()
+    rec = eng2.restore(step)
+    sync(dev)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    st2 = eng2.run_local(state=rec.state)
+    state_equal(st2, st)
+    if eng2.trace_stream.merged() != ts.merged():
+        raise AssertionError("resumed merged trace != the streamed run's")
+    if eng2.metrics_stream.lines != ms.lines:
+        raise AssertionError("resumed metrics records != the streamed run's")
+    print(f"[streams] resumed from window {step} (trace_n "
+          f"{rec.state.trace_n.tolist()}; restore {restore_ms:.3f} ms): "
+          f"state (ring, trace_tail), merged trace and metrics records == "
+          f"the uninterrupted streamed run ({card})", flush=True)
+    return dict(windows=windows, events=events, wall=wall,
+                host_reads=eng.host_reads, drains=eng.drains,
+                drain_bytes=eng.drain_bytes, save_ms=ck.save_ms,
+                ck_bytes=sizes, restore_ms=restore_ms, resume_step=step)
+
+
+def phase_placement(card: str, built, main_run: dict, ckdir: str,
+                    dev: str = "cuda") -> dict:
+    """A placement at window 128 of the streamed run (its checkpoint, into
+    a fresh streamed engine) from the counters' performance values, then on
+    to the end: the oracle's trace, the migrate books balanced,
+    ``route_rank`` launched over the whole pool."""
+    import torch
+    from repro_torch.core import monitoring as mon
+    from repro_torch.core import scheduler
+    from repro_torch.kernels import ops
+
+    spec = built[3]
+    shapes = []
+
+    def route(keys):
+        shapes.append(tuple(keys.shape))
+        return ops.route_rank(keys, n_buckets=spec.n_agents + 1)
+
+    eng = streamed_engine(built, dev, ckdir, every=0, route_fn=route)
+    st = eng.restore(MIGRATE_AT).state
+    la = st.world.lp_agent[0]
+    owned = torch.bincount(la.long(), minlength=spec.n_agents)
+    perf = scheduler.perf_values_from_counters(
+        st.counters, owned, st.counters[:, mon.C_POOL_OCC])
+    sync(dev)
+    t0 = time.perf_counter()
+    plan = scheduler.plan_placement(perf, st.world.lp_ctx[0],
+                                    spec.n_agents)
+    sync(dev)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+
+    def migrate(new_la):
+        shapes.clear()
+        sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.apply_placement_local(st, new_la)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = int((out.counters - st.counters)[:, mon.C_MIGRATE_OUT].sum())
+        return out, moved, ms, launches(), list(shapes)
+
+    out, moved, ms, ran, seen = migrate(plan)
+    how = "plan_placement"
+    if moved == 0:
+        out, moved, ms, ran, seen = migrate((la + 1) % spec.n_agents)
+        how = "every LP one agent on (the plan moved nothing)"
+    c = out.counters.sum(0).cpu()
+    if not (int(c[mon.C_MIGRATE_OUT]) == int(c[mon.C_MIGRATE_IN]) > 0):
+        raise AssertionError(f"migrate books {int(c[mon.C_MIGRATE_OUT])} out "
+                             f"{int(c[mon.C_MIGRATE_IN])} in")
+    if ran["route_rank"] != 1 or seen != [(spec.n_agents, spec.pool_cap)]:
+        raise AssertionError(f"migration: route_rank launches "
+                             f"{ran['route_rank']}, shapes {seen}")
+    fin = eng.run_local(state=out)
+    no_drop("placement", fin)
+    if sorted(eng.trace_stream.merged()) != main_run["oracle"]:
+        raise AssertionError("migrated run's merged trace != the oracle")
+    n_lp_moved = int((plan != la).sum()) if how == "plan_placement" else \
+        spec.n_lp
+    print(f"[placement] window {MIGRATE_AT}: {how}, {n_lp_moved} of "
+          f"{spec.n_lp} LPs moved (plan_placement {plan_ms:.3f} ms), perf "
+          f"values {perf.tolist()}; {moved} pending events migrated (out "
+          f"== in), apply_placement_local {ms:.3f} ms, route_rank "
+          f"launched once at {seen[0]}; the continuation's merged trace == "
+          f"the oracle in full-row order, no drop ({card})", flush=True)
+    return dict(moved=moved, ms=ms, lps=n_lp_moved, plan_ms=plan_ms)
+
+
+def phase_cli_resume(card: str, ckdir: str, dev: str = "cuda") -> dict:
+    """``simulate t0t1`` killed by SIGKILL in a subprocess after the
+    checkpoint at window 40 on the card, then ``--resume`` on the card and
+    on the CPU from the same directory: each prints the uninterrupted run's
+    line."""
+    import contextlib
+    import io
+    import signal
+    from repro_torch.launch import simulate
+
+    whole = simulate.main([*CLI_T0T1, "--device", dev])
+    t0 = time.perf_counter()
+    killed = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.simulate", *CLI_T0T1,
+         "--device", dev, "--checkpoint-dir", ckdir, "--checkpoint-every",
+         "20", "--kill-after-window", "40"], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), timeout=600, cwd=ROOT)
+    t_kill = time.perf_counter() - t0
+    if killed.returncode != -signal.SIGKILL:
+        raise AssertionError(f"--kill-after-window: exit "
+                             f"{killed.returncode}: {killed.stderr[-2000:]}")
+    took = {}
+    for on in (dev, "cpu"):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            simulate.main([*CLI_T0T1, "--device", on, "--checkpoint-dir",
+                           ckdir, "--resume"])
+        took[on] = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        if lines != [f"[resume] window 40 from {ckdir}", *whole]:
+            raise AssertionError(f"--resume --device {on}: {lines}")
+    print(f"[simulate] t0t1 {' '.join(CLI_T0T1[1:])}: killed by SIGKILL "
+          f"after the checkpoint at window 40 on {dev} (subprocess "
+          f"{t_kill:.1f} s); --resume on {dev} ({took[dev]:.1f} s) and on "
+          f"cpu ({took['cpu']:.1f} s) print the uninterrupted line "
+          f"{whole[0]!r} ({card})", flush=True)
+    return took
+
+
+def phase_host_layer(card: str, main_run: dict, dev: str = "cuda",
+                     grid: dict | None = None) -> dict:
+    """Phase 4f: streams, resume, placement and the CLI's crash harness."""
+    import tempfile
+    from repro_torch.core import components as comps
+
+    t0 = time.perf_counter()
+    built = tiered_grid(comps, **(grid or {})).build(**tiered_build_kw())
+    with tempfile.TemporaryDirectory() as tmp:
+        out = phase_streams(card, built, main_run,
+                            os.path.join(tmp, "streams"), dev)
+        out["placement"] = phase_placement(
+            card, built, main_run, os.path.join(tmp, "streams"), dev)
+        out["cli"] = phase_cli_resume(card, os.path.join(tmp, "cli"), dev)
+    print(f"[host layer] phase 4f: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 # --------------------------------------------------------------- phase 3z
@@ -2400,6 +2682,7 @@ def main() -> int:
     phase_profile(card, fused=True)
     phase_entry_point()
     phase_scenarios(card)
+    phase_host_layer(card, main_run)
     phase_model_path(card)
     served = phase_serve(card)
     phase_serve_entry()

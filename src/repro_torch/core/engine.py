@@ -27,10 +27,12 @@ whole-table copies. All options give the same trace, counters and world;
 ``insert_mode`` changes the slot layout and the ring diagnostics.
 
 The reference runs this inside a jitted ``while_loop``; here the host steps
-one window at a time and syncs twice per window: it reads ``done``, and it
-reads one small tensor holding the conflict-fallback counts (the sequential
-fold's trip count), the kinds among the fallback rows and which kinds the
-clean rows hold. The reference evaluates every handler on every lane; the
+one window at a time and syncs twice per window: it reads ``done`` (with
+``trace_n`` when a trace stream is attached), and it reads one small tensor
+holding the conflict-fallback counts (the sequential fold's trip count), the
+kinds among the fallback rows and which kinds the clean rows hold. Streams
+read more only on the windows that use it: the trace ring on drain windows,
+the counters on metrics windows. ``Engine.host_reads`` counts the reads. The reference evaluates every handler on every lane; the
 port skips the handlers of kinds that no lane holds, which no lane's result
 depends on. Steps are labelled for ``torch.profiler`` (``window.*``,
 ``execute.*``).
@@ -40,6 +42,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -68,7 +71,7 @@ class EngineState(NamedTuple):
     windows: torch.Tensor    # i32 (A,)
     trace: torch.Tensor      # i32 (A, trace_cap, 4): (time, seq, kind, dst)
     trace_n: torch.Tensor    # i32 (A,)  rows ever written
-    trace_tail: torch.Tensor  # i32 (A,) rows drained to the host (0 here)
+    trace_tail: torch.Tensor  # i32 (A,) rows drained to the host
 
 
 def _to(x, device):
@@ -110,6 +113,16 @@ class Engine:
     ``select_fn``/``group_fn``/``route_fn``/``trace_fn`` always, and under
     ``spec.fused_select`` ``fused_fn`` (with ``slot_fn``, unless a
     ``fused_fn`` is given) in place of the select and the grouping.
+
+    The host layer: with a ``trace_stream`` (``monitoring.TraceStream``)
+    attached, ``trace_cap`` sizes a per-agent *ring* that the drivers drain
+    to the stream at window starts, every ``drain_every`` windows and
+    whenever the next window could overrun it, so a run of any length keeps
+    ``C_TRACE_DROP == 0``; a ``metrics_stream`` gets the counters at the end
+    of its interval windows. A ``checkpointer`` (``checkpoint.
+    SimCheckpointer``) saves the state every ``checkpointer.every`` windows,
+    then ``window_hook(window, state)`` runs, after every window of
+    ``run_local`` and ``run_adaptive``. ``step_local`` fires none of them.
     """
 
     def __init__(self, world, own, init_events: ev.EventBatch,
@@ -120,7 +133,26 @@ class Engine:
                  trace_fn: Callable | None = None,
                  fused_fn: Callable | None = None,
                  slot_fn: Callable | None = None,
-                 device=None):
+                 device=None,
+                 trace_stream: "mon.TraceStream | None" = None,
+                 metrics_stream: "mon.MetricsStream | None" = None,
+                 drain_every: int = 16,
+                 checkpointer=None,
+                 window_hook: Callable | None = None):
+        self.trace_stream = trace_stream
+        self.metrics_stream = metrics_stream
+        self.checkpointer = checkpointer
+        self.window_hook = window_hook
+        self.drain_every = int(drain_every)
+        if self.drain_every < 1:
+            raise ValueError(f"drain_every must be >= 1, got {drain_every}")
+        if trace_stream is not None and trace_cap <= 0:
+            raise ValueError(
+                "a TraceStream needs a device-side ring: pass trace_cap > 0")
+        # host reads of device tensors, and the drains' ring copies
+        self.host_reads = 0
+        self.drains = 0
+        self.drain_bytes = 0
         if spec.merge_mode not in ("delta", "dense"):
             raise ValueError(f"spec.merge_mode must be 'delta' or 'dense', "
                              f"got {spec.merge_mode!r}")
@@ -190,14 +222,24 @@ class Engine:
             trace_n=z.clone(), trace_tail=z.clone())
 
     # ------------------------------------------------------------- superstep
-    def _superstep(self, st: EngineState,
-                   exec_cap: int | None = None) -> EngineState:
+    def _xcap(self, width: int) -> int:
+        """A window's selection width: the exec width within the pool."""
+        return max(min(int(width), self.spec.pool_cap), 1)
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """One host read of a device tensor (counted)."""
+        self.host_reads += 1
+        return t.cpu().numpy()
+
+    def _superstep(self, st: EngineState, exec_cap: int | None = None,
+                   ring: bool = False) -> EngineState:
         """One conservative window for every agent. ``exec_cap`` overrides
-        the spec's static width (the adaptive driver's rung)."""
+        the spec's static width (the adaptive driver's rung); ``ring``
+        writes the trace as the streaming ring (the drain runs before, on
+        the host)."""
         spec = self.spec
         world, pool, counters = st.world, st.pool, st.counters
-        width = spec.exec_cap if exec_cap is None else exec_cap
-        xcap = max(min(width, spec.pool_cap), 1)
+        xcap = self._xcap(spec.exec_cap if exec_cap is None else exec_cap)
 
         # 1-2. GVT + safe mask; 3. order (time, seq) + compact to the
         # earliest exec_cap slots
@@ -232,7 +274,16 @@ class Engine:
         execute = (self._execute_batched if spec.batched_dispatch
                    else self._execute_scan)
         world, counters, emits, trace, trace_n = execute(
-            world, counters, cand, exec_safe, st.trace, st.trace_n, pre=pre)
+            world, counters, cand, exec_safe, st.trace, st.trace_n,
+            ring=ring, pre=pre)
+        if ring:
+            # ring overwrite accounting: rows written this window on top of
+            # un-drained ones (0 while the drain keeps the ring ahead)
+            tcap = st.trace.shape[1]
+            over_before = (st.trace_n - st.trace_tail - tcap).clamp(min=0)
+            over_after = (trace_n - st.trace_tail - tcap).clamp(min=0)
+            counters = mon.bump(counters, mon.C_TRACE_DROP,
+                                over_after - over_before)
 
         with record_function("window.release"):
             n_processed = tu.isum(exec_safe, 1)
@@ -280,7 +331,7 @@ class Engine:
 
     # ------------------------------------------------- step 4: sequential fold
     def _execute_scan(self, world, counters, cand: ev.EventBatch,
-                      exec_safe, trace, trace_n, pre=None):
+                      exec_safe, trace, trace_n, ring=False, pre=None):
         """``batched_dispatch=False``: the rows in (time, seq) order, one at a
         time per agent. Safe rows form a prefix of the selection, so the fold
         stops after the longest agent's safe prefix (one host read); the
@@ -296,8 +347,8 @@ class Engine:
         a = torch.arange(A, device=dev)
         # one host read: each agent's safe-prefix length and the row kinds
         n_safe = tu.isum(exec_safe, 1)
-        host = torch.cat([n_safe, cand.kind.clamp(
-            0, self.registry.n_kinds - 1).reshape(-1)]).tolist()
+        host = self._read(torch.cat([n_safe, cand.kind.clamp(
+            0, self.registry.n_kinds - 1).reshape(-1)])).tolist()
         n_safe_h, kinds_h = host[:A], host[A:]
         for i in range(max(n_safe_h)):
             is_safe = exec_safe[:, i]
@@ -316,18 +367,22 @@ class Engine:
             counters = mon.bump(counters, mon.C_DROP_POOL,
                                 tu.isum(val & ~ok, 1))
             trow = torch.stack([e.time, e.seq, e.kind, e.dst], 1)
-            tidx = torch.where(is_safe & (trace_n < tcap), trace_n, tcap)
+            if ring:
+                tidx = torch.where(is_safe, trace_n % tcap, tcap)
+            else:
+                tidx = torch.where(is_safe & (trace_n < tcap), trace_n, tcap)
+                if self.trace_cap > 0:
+                    counters = mon.bump(
+                        counters, mon.C_TRACE_DROP,
+                        (is_safe & (trace_n >= tcap)).to(I32))
             trace = tu.scatter_rows(trace, tidx[:, None], trow[:, None])
-            if self.trace_cap > 0:
-                counters = mon.bump(counters, mon.C_TRACE_DROP,
-                                    (is_safe & (trace_n >= tcap)).to(I32))
             trace_n = trace_n + is_safe.to(I32)
         emits = emits.map(lambda x: x[:, :ecap])
         return world, counters, emits, trace, trace_n
 
     # -------------------------------------------- step 4: vectorized dispatch
     def _execute_batched(self, world, counters, cand: ev.EventBatch,
-                         exec_safe, trace, trace_n, pre=None):
+                         exec_safe, trace, trace_n, ring=False, pre=None):
         """Grouped batched dispatch: conflict-free rows in one handler
         evaluation, conflicted rows through a sequential fold compacted to
         them. Emits land in a per-row (m, MAX_EMIT) matrix and the trace is
@@ -363,7 +418,8 @@ class Engine:
         # the window's one host read besides `done`: which kinds the clean
         # rows hold (handlers of absent kinds are not evaluated), and the
         # fallback's trip count and row kinds
-        host = torch.cat([present, n_dirty, dkind.reshape(-1)]).tolist()
+        host = self._read(
+            torch.cat([present, n_dirty, dkind.reshape(-1)])).tolist()
         clean_kinds = {k for k in range(nk) if host[k] > 0}
         n_dirty_h, dkind_h = host[nk:nk + A], host[nk + A:]
 
@@ -406,8 +462,9 @@ class Engine:
         rows4 = torch.stack([cand.time, cand.seq, cand.kind, cand.dst], 2)
         with record_function("execute.trace"):
             trace, trace_n, clipped = ev.trace_append(
-                trace, trace_n, rows4, exec_safe, rank_fn=self.trace_fn)
-        if self.trace_cap > 0:
+                trace, trace_n, rows4, exec_safe, ring=ring,
+                rank_fn=self.trace_fn)
+        if not ring and self.trace_cap > 0:
             counters = mon.bump(counters, mon.C_TRACE_DROP, clipped)
 
         # flatten the per-row matrix row-major (the sequential append order)
@@ -431,10 +488,15 @@ class Engine:
         return pool2, counters, dropped
 
     def _route_and_insert(self, world, pool: ev.EventPool, counters,
-                          emits: ev.EventBatch):
+                          emits: ev.EventBatch, migrate: bool = False):
         """Route emits by destination agent and insert (steps 5-6). The
         reference's ``all_to_all`` is a transpose of the (A_src, A_dst,
-        route_cap) buffer; receive order is ascending source agent."""
+        route_cap) buffer; receive order is ascending source agent.
+
+        ``migrate`` is the placement migration's flavour: rows shipped to
+        another agent are booked in ``C_MIGRATE_OUT`` (after the route cap)
+        and rows received in ``C_MIGRATE_IN`` (before the insert), so the
+        two sum to the same total; a receiver's overflow is ``C_DROP_POOL``."""
         spec = self.spec
         A = spec.n_agents
         if A == 1:
@@ -460,6 +522,9 @@ class Engine:
                             tu.isum(ok & (dst_agent != me), 1))
         counters = mon.bump(counters, mon.C_LP_LOCAL,
                             tu.isum(ok & (dst_agent == me), 1))
+        if migrate:
+            counters = mon.bump(counters, mon.C_MIGRATE_OUT,
+                                tu.isum(ok & (dst_agent != me), 1))
         flat = torch.where(ok, dst_agent * rcap + rank, A * rcap)
 
         # the all_to_all: scatter into (A_src, A_dst * route_cap), then
@@ -472,9 +537,160 @@ class Engine:
             b.reshape((A, A, rcap) + b.shape[2:]).transpose(0, 1).reshape(
                 (A, A * rcap) + b.shape[2:])
             for b in tu.scatter_rows_many(bufs, flat, list(emits))))
+        if migrate:
+            counters = mon.bump(counters, mon.C_MIGRATE_IN,
+                                tu.isum(rx.valid, 1))
         pool, counters, dropped = self._insert(pool, counters, rx)
         counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
         return pool, counters
+
+    # -------------------------------------------------------------- migration
+    def apply_placement_local(self, st: EngineState,
+                              new_lp_agent) -> EngineState:
+        """Move LPs to a new placement (paper §4.1, dynamic decomposition).
+
+        Component state is replicated, so migration rewrites ``lp_agent``
+        (fleet-wide, (n_lp,)) and re-homes the pending events whose LP
+        moved: each donor extracts them, ``pop_mask`` canonicalizes its free
+        ring, and they travel the routing path with ``migrate=True`` (the
+        ``route_rank`` kernel over the whole pool)."""
+        A = self.spec.n_agents
+        la = torch.as_tensor(new_lp_agent, dtype=I32, device=self.device)
+        world = st.world._replace(
+            lp_agent=la[None].expand(A, la.shape[0]).contiguous())
+        if A == 1:
+            return st._replace(world=world)
+        pool = st.pool
+        me = tu.arange(A, self.device)[:, None]
+        owner = tu.gather_rows(world.lp_agent,
+                               pool.dst.clamp(0, self.spec.n_lp - 1))
+        moving = pool.valid & (owner != me)
+        emits = ev.extract(pool, moving)
+        pool = ev.pop_mask(pool, moving)
+        pool, counters = self._route_and_insert(world, pool, st.counters,
+                                                emits, migrate=True)
+        return st._replace(world=world, pool=pool, counters=counters)
+
+    # ------------------------------------------------------------ host layer
+    @property
+    def _streaming(self) -> bool:
+        return self.trace_stream is not None or self.metrics_stream is not None
+
+    @property
+    def _checkpointing(self) -> bool:
+        return self.checkpointer is not None and self.checkpointer.every > 0
+
+    def _begin_streams(self, widths) -> None:
+        """Arm the attached streams for a run at exec widths ``widths``: the
+        ring must hold the widest window's writes."""
+        if self.trace_stream is not None:
+            need = max(self._xcap(w) for w in widths)
+            if self.trace_cap < need:
+                raise ValueError(
+                    f"streaming trace ring too small: trace_cap="
+                    f"{self.trace_cap} must hold one window's writes (max "
+                    f"exec width {need}) or the drain cannot keep "
+                    f"C_TRACE_DROP == 0")
+            self.trace_stream.begin(self.spec.n_agents)
+        if self.metrics_stream is not None:
+            self.metrics_stream.begin(self.spec.n_agents, self.registry)
+
+    def _finalize_streams(self, st: EngineState) -> EngineState:
+        """Flush the never-drained tail spans and the final metrics record
+        out of the finished state."""
+        if self.trace_stream is not None:
+            self.trace_stream.finalize(st.trace.cpu().numpy(),
+                                       st.trace_n.cpu().numpy(),
+                                       st.trace_tail.cpu().numpy())
+        if self.metrics_stream is not None:
+            self.metrics_stream.finalize(st.counters.cpu().numpy(),
+                                         st.windows.cpu().numpy(),
+                                         st.t_now.cpu().numpy())
+        return st
+
+    def _start(self, st: EngineState, widths, max_windows: int,
+               hosted: bool):
+        """Arm a run: the streams, then one host read of the window count
+        (and, with a trace stream, ``trace_tail``, which the host mirrors
+        from here on). Returns (window limit, tail): ``max_windows`` counts
+        all windows under the plain driver and this call's under the host
+        layer, as in the reference."""
+        self._begin_streams(widths)
+        parts = [st.windows[:1]]
+        if self.trace_stream is not None:
+            parts.append(st.trace_tail)
+        host = self._read(torch.cat(parts)).tolist()
+        limit = host[0] + max_windows if hosted else max_windows
+        return limit, (host[1:] if self.trace_stream is not None else None)
+
+    def _window_start(self, st: EngineState, limit: int, tail, xcap: int):
+        """The host read before a window: ``done``, the window count and,
+        with a trace stream, every agent's ``trace_n``, then the drain.
+        Returns (state, window index or None at the end, tail)."""
+        parts = [st.done[:1].to(I32), st.windows[:1]]
+        if self.trace_stream is not None:
+            parts.append(st.trace_n)
+        host = self._read(torch.cat(parts)).tolist()
+        done, windows = bool(host[0]), host[1]
+        if done or windows >= limit:
+            return st, None, tail
+        if self.trace_stream is not None:
+            st, tail = self._drain(st, windows, host[2:], tail, xcap)
+        return st, windows, tail
+
+    def _drain(self, st: EngineState, windows: int, trace_n: list,
+               tail: list, xcap: int):
+        """The window-start drain (before this window's writes): ship each
+        agent's span ``[trace_tail, trace_n)`` when the cadence hits or when
+        this window's widest write could overrun the ring, then move
+        ``trace_tail`` to ``trace_n`` there. The ring is copied to the host
+        only when some span is not empty; ``tail`` is the host's mirror of
+        ``trace_tail``."""
+        tcap = st.trace.shape[1]
+        cadence = windows % self.drain_every == 0
+        pending = [n - t for n, t in zip(trace_n, tail)]
+        do = [cadence or p + xcap > tcap for p in pending]
+        count = [p if d else 0 for p, d in zip(pending, do)]
+        if any(c > 0 for c in count):
+            ring = self._read(st.trace)
+            self.drains += 1
+            self.drain_bytes += ring.nbytes
+            self.trace_stream.on_drain(np.arange(len(tail)), np.array(tail),
+                                       np.array(count), ring)
+        new_tail = [n if d else t for n, t, d in zip(trace_n, tail, do)]
+        if new_tail != tail:
+            st = st._replace(trace_tail=torch.tensor(
+                new_tail, dtype=I32, device=st.trace_tail.device))
+        return st, new_tail
+
+    def _window_end(self, st: EngineState, window: int, rung=None,
+                    host_counters=None) -> None:
+        """After a window: the metrics record (the counters read only on
+        the stream's interval windows, unless the caller read them), the
+        due checkpoint, then the window hook."""
+        ms = self.metrics_stream
+        if ms is not None and window % ms.interval == 0:
+            host = host_counters
+            if host is None:
+                host = self._read(torch.cat([st.t_now[:, None], st.counters],
+                                            1))
+            A = host.shape[0]
+            ms.on_window(np.arange(A), np.full(A, window), host[:, 0],
+                         host[:, 1:])
+        ck = self.checkpointer
+        if ck is not None and ck.due(window):
+            ck.save_sim(window, st, engine=self, rung=rung)
+        if self.window_hook is not None:
+            self.window_hook(window, st)
+
+    def restore(self, step: int | None = None):
+        """Load a checkpoint of this engine's checkpointer: returns a
+        ``SimCheckpoint(step, state, rung)`` for a driver's ``state=`` (and
+        ``rung=``), and stages its trace spans and metrics records in the
+        attached streams."""
+        if self.checkpointer is None:
+            raise ValueError("no checkpointer attached to this engine")
+        return self.checkpointer.restore_sim(self, step=step)
 
     # ------------------------------------------------------------------- run
     def step_local(self, st: EngineState) -> EngineState:
@@ -485,13 +701,20 @@ class Engine:
                   state: EngineState | None = None) -> EngineState:
         """Step windows from the host until ``done`` (computed at the start
         of a window, from the GVT before execution, exactly as the
-        reference's ``while_loop`` test) or ``max_windows``."""
+        reference's ``while_loop`` test) or ``max_windows``, with the host
+        layer (streams, checkpoints, the window hook) at each boundary."""
         st = self.init_state() if state is None else state
-        windows = int(st.windows[0])
-        while windows < max_windows and not bool(st.done[0]):
-            st = self._superstep(st)
-            windows += 1
-        return st
+        width = self.spec.exec_cap
+        xcap = self._xcap(width)
+        limit, tail = self._start(st, [width], max_windows,
+                                  self._streaming or self._checkpointing)
+        while True:
+            st, w, tail = self._window_start(st, limit, tail, xcap)
+            if w is None:
+                break
+            st = self._superstep(st, ring=self.trace_stream is not None)
+            self._window_end(st, w + 1)
+        return self._finalize_streams(st)
 
     def run_adaptive(self, max_windows: int = 10_000,
                      policy: "pol.ExecPolicy | int | None" = None,
@@ -510,18 +733,28 @@ class Engine:
         this call, as in the reference."""
         p = pol.normalize(self.spec.exec_policy if policy is None else policy)
         st = self.init_state() if state is None else state
+        limit, tail = self._start(st, p.ladder, max_windows, True)
         rung = p.init_rung if rung is None else int(rung)
-        prev = st.counters.cpu().numpy()
+        prev = self._read(st.counters)
         rungs: list[int] = []
-        for _ in range(max_windows):
-            if bool(st.done.all()):
+        while True:
+            width = p.ladder[rung]
+            st, w, tail = self._window_start(st, limit, tail,
+                                             self._xcap(width))
+            if w is None:
                 break
             rungs.append(rung)
-            st = self._superstep(st, exec_cap=p.ladder[rung])
-            cur = st.counters.cpu().numpy()
+            st = self._superstep(st, exec_cap=width,
+                                 ring=self.trace_stream is not None)
+            # the window's one read of the counters, with t_now for the
+            # metrics record
+            host = self._read(torch.cat([st.t_now[:, None], st.counters],
+                                        1))
+            cur = host[:, 1:]
             rung = pol.choose_rung(p, rung,
                                    pol.window_stats(prev, cur,
                                                     self.spec.pool_cap))
             prev = cur
+            self._window_end(st, w + 1, rung=rung, host_counters=host)
         self.adaptive_rungs = tuple(rungs)
-        return st
+        return self._finalize_streams(st)

@@ -8,6 +8,18 @@
   workload  simulate a training cell from each dry-run roofline JSON record
             in ``--results`` (``core/workload.py``)
 
+``t0t1`` takes the host layer's options. ``--stream-trace CAP`` streams the
+whole trace through a CAP-row ring (the line gains ``streamed=...
+trace_drop=...``), ``--metrics-interval N`` prints a JSON metrics record
+every N windows, ``--drain-every N`` sets the drain cadence.
+``--checkpoint-dir D --checkpoint-every W`` saves the engine state every W
+windows (``--checkpoint-keep`` newest kept), ``--resume`` continues from the
+latest checkpoint in D, and ``--kill-after-window W`` SIGKILLs the process
+right after the first committed checkpoint at window >= W (the crash
+harness). A sweep of several bandwidths keeps one subdirectory ``D/bw_<bw>``
+per bandwidth. The checkpoints are the reference's layout, so a run of
+either package, on the card or the CPU, resumes in the other.
+
 Runs on the CUDA card unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.simulate t0t1 --device cuda
@@ -20,6 +32,7 @@ import argparse
 import glob
 import json
 import os
+import sys
 
 from repro_torch.core import monitoring as mon
 
@@ -40,6 +53,40 @@ def exec_policy_args(args, pool_cap: int) -> dict:
     ladder = (tuple(args.exec_ladder) if args.exec_ladder
               else default_ladder(pool_cap))
     return dict(exec_policy=ExecPolicy(ladder=ladder))
+
+
+def build_streams(args):
+    """(engine kwargs, TraceStream or None) from the streaming options;
+    the metrics records go to stdout."""
+    kw, ts = {}, None
+    if args.stream_trace is not None:
+        ts = mon.TraceStream()
+        kw.update(trace_cap=args.stream_trace, trace_stream=ts,
+                  drain_every=args.drain_every)
+    if args.metrics_interval is not None:
+        kw.update(metrics_stream=mon.MetricsStream(
+            interval=args.metrics_interval, out=sys.stdout),
+            drain_every=args.drain_every)
+    return kw, ts
+
+
+def build_checkpointer(args, directory=None):
+    """A SimCheckpointer from the checkpoint options, or None without
+    ``--checkpoint-dir``; ``directory`` overrides it (a sweep point's)."""
+    if args.checkpoint_dir is None:
+        if (args.checkpoint_every or args.resume
+                or args.kill_after_window is not None):
+            raise SystemExit("--checkpoint-every/--resume/--kill-after-window "
+                             "need --checkpoint-dir DIR")
+        return None
+    if args.kill_after_window is not None and not args.checkpoint_every:
+        raise SystemExit("--kill-after-window needs --checkpoint-every W "
+                         "(the kill fires after a committed checkpoint)")
+    from repro_torch.checkpoint import SimCheckpointer
+    return SimCheckpointer(directory or args.checkpoint_dir,
+                           every=args.checkpoint_every,
+                           keep=args.checkpoint_keep,
+                           kill_after=args.kill_after_window)
 
 
 def t0t1_scenario(bw: float, flows: int, agents: int,
@@ -69,25 +116,44 @@ def t0t1_scenario(bw: float, flows: int, agents: int,
 def run_t0t1(args) -> list[str]:
     from repro_torch.core import Engine
 
+    # a sweep keeps one checkpoint subdirectory per bandwidth
+    sweep_dirs = {bw: args.checkpoint_dir for bw in args.bandwidths}
+    if args.checkpoint_dir is not None and len(args.bandwidths) > 1:
+        sweep_dirs = {bw: os.path.join(args.checkpoint_dir, f"bw_{bw:g}")
+                      for bw in args.bandwidths}
     lines = []
     for bw in args.bandwidths:
+        ck = build_checkpointer(args, directory=sweep_dirs[bw])
         world, own, init_ev, spec = t0t1_scenario(
             bw, args.flows, args.agents, args.batched_dispatch,
             merge_mode=args.merge_mode, insert_mode=args.insert_mode,
             fused_select=args.fused_select,
             **exec_policy_args(args, T0T1_POOL_CAP))
-        eng = Engine(world, own, init_ev, spec, device=args.device)
+        stream_kw, ts = build_streams(args)
+        eng = Engine(world, own, init_ev, spec, device=args.device,
+                     checkpointer=ck, **stream_kw)
+        state, rung = None, None
+        if args.resume:
+            rec = eng.restore()
+            state, rung = rec.state, rec.rung
+            print(f"[resume] window {rec.step} from {sweep_dirs[bw]}",
+                  flush=True)
         if args.adaptive_exec:
-            st = eng.run_adaptive(max_windows=200_000)
+            st = eng.run_adaptive(max_windows=200_000, state=state,
+                                  rung=rung)
         else:
-            st = eng.run_local(max_windows=200_000)
+            st = eng.run_local(max_windows=200_000, state=state)
         c = st.counters.sum(0).cpu()
+        extra = ""
+        if ts is not None:
+            extra = (f" streamed={ts.n_streamed}"
+                     f" trace_drop={int(c[mon.C_TRACE_DROP])}")
         line = (f"[t0t1] bw={bw:7.3f} MB/tick  "
                 f"events={int(c[mon.C_EVENTS]):6d} "
                 f"stale={int(c[mon.C_STALE]):5d} "
                 f"interrupts={int(c[mon.C_INTERRUPTS]):5d} "
                 f"MB={int(c[mon.C_MB_TRANSFERRED])} "
-                f"windows={int(st.windows[0])}")
+                f"windows={int(st.windows[0])}" + extra)
         print(line, flush=True)
         lines.append(line)
     return lines
@@ -156,6 +222,37 @@ def main(argv=None):
     p1.add_argument("--exec-ladder", type=int, nargs="+", default=None,
                     help="explicit width ladder for --adaptive-exec "
                          "(default: policy.default_ladder(pool_cap))")
+    p1.add_argument("--stream-trace", type=int, default=None, metavar="CAP",
+                    help="stream the whole event trace to the host through "
+                         "a CAP-row ring drained at window boundaries "
+                         "(C_TRACE_DROP stays 0 for runs of any length; CAP "
+                         "must be >= the exec width)")
+    p1.add_argument("--metrics-interval", type=int, default=None,
+                    metavar="N",
+                    help="print a fleet metrics record as one JSON line "
+                         "every N windows (the registry's counter names; a "
+                         "final record always follows)")
+    p1.add_argument("--drain-every", type=int, default=16, metavar="N",
+                    help="trace-ring drain cadence in windows (a drain also "
+                         "fires whenever the next window could overrun the "
+                         "ring; default 16)")
+    p1.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="directory of engine-state checkpoints (atomic "
+                         "step_* subdirectories; enables the other "
+                         "checkpoint options)")
+    p1.add_argument("--checkpoint-every", type=int, default=0, metavar="W",
+                    help="save a checkpoint every W windows (0: none)")
+    p1.add_argument("--checkpoint-keep", type=int, default=3, metavar="N",
+                    help="keep the newest N checkpoints (default 3)")
+    p1.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in "
+                         "--checkpoint-dir (byte-identical to a run that "
+                         "never stopped)")
+    p1.add_argument("--kill-after-window", type=int, default=None,
+                    metavar="W",
+                    help="SIGKILL this process right after the first "
+                         "committed checkpoint at window >= W (the crash "
+                         "harness; needs --checkpoint-every)")
     _device_arg(p1)
     p2 = sub.add_parser("workload")
     p2.add_argument("--results", default="results/dryrun")
