@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (fails without one, and fails when run outside a
-checkout of the repository). Phases, each of which raises on failure:
+checkout of the repository). The CPU reference runs and the sequential
+oracles that phases 4-4g compare against run in four worker processes
+started first (``Background``), beside the card's phases, which take their
+results when they need them. Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile each ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
@@ -96,6 +99,23 @@ checkout of the repository). Phases, each of which raises on failure:
    the oracle; then ``failures.xla_log`` on all 2^22 unit draws, card
    against CPU, and int32 payload bit patterns (31-bit, denormal, NaN)
    through both front ends;
+4g. the ensemble driver on phase 4e's failure model: 256 replicas (seeds
+   0-255, 2,048 rows) through ``Engine.run_ensemble`` on the card with a
+   4,096-row trace per replica and agent, the launch counts set to 0
+   before and read after (each stitched hook once a window, every launch
+   at 2,048 rows), its bytes reckoned before the run; every replica done,
+   nothing dropped; replica 0 equal to phase 4e's stitched card run (the
+   trace by its written rows), replicas 1, 128 and 255 equal to card
+   ``run_local``s of their seeded states, replica 255's merged trace equal
+   to the oracle of its seeded world in full-row order, the windows
+   spread; the fused ensemble of 32 replicas equal to the first 32; a
+   4-replica ensemble of a 16-farm, 4-agent cut equal on the card and the
+   CPU; events/s, ms, host reads and fallback steps a window beside phase
+   4e's run, a profile of 10 windows, peak memory; then ``simulate
+   ensemble`` (card and CPU lines equal), ``simulate run --list``, ``run
+   ensemble_farm`` (card and CPU), ``run t0t1`` preempted at window 12 and
+   resumed with ``--stream-check``, and ``run t0t1`` killed by SIGKILL
+   after a checkpoint and resumed by the same command;
 4f. the host layer on phase 4's stitched ``tiered_grid``: the run streamed
    through a 512-row trace ring (drained every 16 windows), metrics every
    32 windows and a checkpoint every 64, equal to phase 4's card state and
@@ -1339,8 +1359,122 @@ def maxmin_call(bs, inc, bw, act) -> None:
               f"{host_us(fn):.3f} us host", flush=True)
 
 
+# ------------------------------------------- CPU references, in the background
+def _cpu_built(name: str):
+    """The scenarios whose CPU runs and oracles run in worker processes,
+    rebuilt there from their names."""
+    from repro_torch.core import components as comps
+    from repro_torch.core import workload as wl
+    from repro_torch.scenarios import cache, failures
+    if name == "tiered":
+        return tiered_grid(comps).build(**tiered_build_kw())
+    if name == "workload":
+        return wl.training_scenario(workload_cell())
+    if name == "cache":
+        return cache.build_churn_scenario(**CACHE_KW)[0]
+    if name == "failures":
+        return failures.build_failure_scenario(**FAIL_KW)[0]
+    if name == "cut":
+        return failures.build_failure_scenario(**ENS_CUT)[0]
+    raise ValueError(name)
+
+
+def _oracle_np(built, **kw) -> dict:
+    from repro_torch.core import run_sequential
+    ow, oc, trace = run_sequential(*built, **kw)
+    return dict(world={f: getattr(ow, f).numpy() for f in ow._fields},
+                counters=oc.numpy(), trace=trace)
+
+
+def _cpu_job(job: str):
+    """One reference computation on the CPU, in a worker process (one torch
+    thread): the scenario rebuilt from its name, the result as numpy."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import contextlib
+    import io
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import Engine
+    from repro_torch.core.engine import seed_rng_fields
+    t0 = time.perf_counter()
+    kind, _, what = job.partition(" ")
+    if what == "oracle" and kind == "ensemble":
+        built = _cpu_built("failures")
+        world = built[0]._replace(fp_rng=seed_rng_fields(
+            Engine(*built, device="cpu").init_state(),
+            torch.tensor(ENS_SOLO[-1], dtype=torch.int32)).world.fp_rng[0])
+        out = _oracle_np((world, *built[1:]), max_events=2_000_000)
+    elif what == "oracle":
+        out = _oracle_np(_cpu_built(kind), max_events=2_000_000)
+    elif kind == "workload":
+        from repro_torch.core import workload as wl
+        st = Engine(*_cpu_built(kind), device="cpu").run_local(
+            max_windows=200_000)
+        out = (state_to_numpy(st), wl.summarize(workload_cell(), st))
+    elif kind == "failures":
+        from repro_torch.core.policy import ExecPolicy
+        built = _cpu_built(kind)
+        eng = Engine(*built, trace_cap=65536, device="cpu")
+        ada = eng.run_adaptive(max_windows=200_000,
+                               policy=ExecPolicy(ladder=FAIL_LADDER))
+        out = (state_to_numpy(Engine(*built, trace_cap=65536,
+                                     device="cpu").run_local()),
+               state_to_numpy(ada), eng.adaptive_rungs)
+    elif kind == "cut":
+        out = state_to_numpy(Engine(*_cpu_built(kind), trace_cap=ENS_TRACE,
+                                    device="cpu").run_ensemble(ENS_CUT_SEEDS))
+    elif kind == "cli":
+        from repro_torch.launch import simulate
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = simulate.main(what.split() + ["--device", "cpu"])
+    else:
+        out = state_to_numpy(Engine(*_cpu_built(kind), trace_cap=65536,
+                                    device="cpu").run_local())
+    return out, time.perf_counter() - t0
+
+
+CPU_JOBS = ("tiered cpu", "tiered oracle", "workload cpu", "cache cpu",
+            "cache oracle", "failures cpu", "failures oracle",
+            "ensemble oracle", "cut cpu", "cli ensemble",
+            "cli run ensemble_farm")
+
+
+class Background:
+    """The CPU reference runs and oracles of phases 4-4g, started together
+    in worker processes at the start, so the card's phases do not wait for
+    them; ``get`` returns a job's result (raising what the job raised) and
+    prints how long it took and how long the card's side waited."""
+
+    def __init__(self, workers: int = 4):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = {name: self.pool.submit(_cpu_job, name)
+                     for name in CPU_JOBS}
+
+    def get(self, name: str):
+        t0 = time.perf_counter()
+        out, took = self.jobs[name].result()
+        print(f"[background] {name}: {took:.1f} s in a worker, waited "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
 # --------------------------------------------------------------- phase 4c
-def phase_workload(card: str) -> dict:
+def workload_cell():
+    """The 64-pod cell of phase 4c."""
+    from repro_torch.core import workload as wl
+    return wl.CellModel(n_pods=64, t_compute_s=0.05, dcn_bytes_per_pod=2e9,
+                        n_steps=1)
+
+
+def phase_workload(card: str, bg: Background) -> dict:
     """The workload bridge at full width: a 64-pod cell (128 flow slots
     over 64 WAN links, one agent) on the card and on the CPU; then the
     ``simulate workload`` entry point on both devices."""
@@ -1351,8 +1485,7 @@ def phase_workload(card: str) -> dict:
     from repro_torch.core import workload as wl
     from repro_torch.launch import simulate
 
-    cell = wl.CellModel(n_pods=64, t_compute_s=0.05, dcn_bytes_per_pod=2e9,
-                        n_steps=1)
+    cell = workload_cell()
     scen = wl.training_scenario(cell)
     spec = scen[3]
     print(f"[workload] 64 pods: {spec.n_lp} LPs, flow table "
@@ -1375,14 +1508,12 @@ def phase_workload(card: str) -> dict:
     if ran["maxmin_rates"] == 0:
         raise AssertionError("maxmin_rates never launched at 64 pods")
     maxmin_routes("64 pods", ran, "maxmin_kernel")
-    t0 = time.perf_counter()
-    st_cpu = Engine(*scen, device="cpu").run_local(max_windows=200_000)
-    want = wl.summarize(cell, st_cpu)
+    st_cpu, want = bg.get("workload cpu")
     state_equal(st, st_cpu)
     if got != want:
         raise AssertionError(f"64 pods: cuda {got} != cpu {want}")
-    print(f"[workload] 64 pods: cuda state == cpu state, same result "
-          f"(cpu {time.perf_counter() - t0:.1f} s)", flush=True)
+    print("[workload] 64 pods: cuda state == cpu state, same result",
+          flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         rec = {"status": "ok", "arch": "dense", "shape": "train_4k",
@@ -1403,9 +1534,10 @@ def phase_workload(card: str) -> dict:
 # --------------------------------------------------------------- phase 4
 def state_equal(a, b, parts=None) -> None:
     """Byte equality of two port states (floats by bit pattern), or of the
-    named ``parts`` of them."""
+    named ``parts`` of them; either may be ``state_to_numpy``'s dict."""
     from repro_torch.convert import state_to_numpy
-    sa, sb = state_to_numpy(a), state_to_numpy(b)
+    sa, sb = (x if isinstance(x, dict) else state_to_numpy(x)
+              for x in (a, b))
     if parts is not None:
         sa = {k: sa[k] for k in parts}
 
@@ -1500,11 +1632,9 @@ def phase_fused_path(card: str, stitched) -> dict:
     return dict(launches=ran, **nums)
 
 
-def phase_main_path(card: str) -> dict:
-    from repro_torch.core import components as comps
-    from repro_torch.core import Engine, merged_engine_trace, run_sequential
+def phase_main_path(card: str, bg: Background) -> dict:
+    from repro_torch.core import merged_engine_trace
 
-    world, own, init_ev, spec = tiered_grid(comps).build(**tiered_build_kw())
     st, ran, nums = run_tiered(card, fused=False)
     missing = [k for k in ("select_events", "group_by_kind", "trace_rank",
                            "route_rank") if ran[k] == 0]
@@ -1515,18 +1645,11 @@ def phase_main_path(card: str) -> dict:
         raise AssertionError(f"group_by_kind launched {ran['group_by_kind']}"
                              f" times in {nums['windows']} windows")
 
-    t0 = time.perf_counter()
-    st_cpu = Engine(world, own, init_ev, spec, trace_cap=65536,
-                    device="cpu").run_local()
-    print(f"[tiered_grid] cpu reference run: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    state_equal(st, st_cpu)
+    state_equal(st, bg.get("tiered cpu"))
     print("[tiered_grid] cuda state == cpu state (trace, counters, world, "
           "pool, ring cursors)", flush=True)
 
-    t0 = time.perf_counter()
-    _w, _c, want = run_sequential(world, own, init_ev, spec,
-                                  max_events=1_000_000)
+    want = bg.get("tiered oracle")["trace"]
     got = merged_engine_trace(st.trace, st.trace_n)
     # The reference's child_seq ids collide across generators here (an
     # initial seq s equals child_seq(p, k) when s == 4p + k + 1), so events
@@ -1537,8 +1660,7 @@ def phase_main_path(card: str) -> dict:
                              f"sequential oracle ({len(want)} rows)")
     ties = len(want) - len({(r[0], r[1]) for r in want})
     print(f"[tiered_grid] merged trace == sequential oracle ({len(want)} "
-          f"events, {ties} rows share (time, seq) with another; "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+          f"events, {ties} rows share (time, seq) with another)", flush=True)
     return dict(launches=ran, state=st, oracle=sorted(want), **nums)
 
 
@@ -1549,7 +1671,6 @@ def phase_profile(card: str, fused: bool, start: int = 150,
     torch.profiler (device busy share, kernels per window, host time of the
     engine's labelled steps)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import components as comps
     from repro_torch.core import Engine
@@ -1572,10 +1693,10 @@ def phase_profile(card: str, fused: bool, start: int = 150,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st, prof_ms = steps(st)
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_ops(prof)
     if not kern:
         raise AssertionError(f"{tag}: the profile holds no device op")
-    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    busy_ms = sum(e.duration_ns() for e in kern) / 1e6 / n
     print(f"{tag} windows {start}..{start + 2 * n}: {plain_ms:.3f} "
           f"ms/window unprofiled, {prof_ms:.3f} ms/window profiled; "
           f"{len(kern) / n:.1f} device ops/window, device busy "
@@ -1642,11 +1763,22 @@ STITCHED_HOOKS = ("select_events", "group_by_kind", "trace_rank",
 FUSED_HOOKS = ("fused_select", "ring_slots", "trace_rank", "route_rank")
 
 
+def device_ops(prof) -> list:
+    """The device's own ops in a profile (kernels, copies, sets), read from
+    the raw trace (quicker than ``prof.events()``). The profiler also mirrors
+    each ``record_function`` range on the device's timeline (a user
+    annotation spanning the range's kernels): those are spans, not work,
+    and are left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
+
+
 def profile_windows(eng, st, n: int = 10):
     """``n`` windows from state ``st`` under torch.profiler: ms a window,
     device ops a window and the device's busy share of the wall."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1656,10 +1788,10 @@ def profile_windows(eng, st, n: int = 10):
             st = eng.step_local(st)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / n * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_ops(prof)
     if not kern:
         raise AssertionError("the profile holds no device op")
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+    busy = sum(e.duration_ns() for e in kern) / 1e6 / n
     return ms, len(kern) / n, busy / ms
 
 
@@ -1700,50 +1832,51 @@ def run_model(label: str, built, card: str, fused: bool = False,
     print(f"[scenarios] {label} cuda: windows={windows} events={events} "
           f"wall={wall:.3f} s events/s={events / wall:.1f} "
           f"fallback rows/window={int(c[mon.C_BATCH_FALLBACK]) / windows:.2f}"
+          f" fallback steps/window={eng.fallback_steps / windows:.2f} "
+          f"host reads/window={eng.host_reads / windows:.4f}"
           f" launches={ran} ({card})", flush=True)
-    return eng, st, ran, dict(windows=windows, events=events, wall=wall)
+    return eng, st, ran, dict(windows=windows, events=events, wall=wall,
+                              fallback_steps=eng.fallback_steps,
+                              host_reads=eng.host_reads)
 
 
-def oracle_equal(label: str, built, runs: dict) -> None:
-    """Every run's merged trace equals the port's oracle in full-row order,
-    and its model counters and component tables the oracle's."""
+def oracle_equal(label: str, built, runs: dict, oracle: dict) -> None:
+    """Every run's merged trace equals the oracle's (``_oracle_np``) in
+    full-row order, and its model counters and component tables the
+    oracle's."""
     import numpy as np
-    from repro_torch.core import merged_engine_trace, run_sequential
+    from repro_torch.core import merged_engine_trace
     from repro_torch.core import monitoring as mon
     from repro_torch.core.registry import registry_of
-    t0 = time.perf_counter()
-    ow, oc, want = run_sequential(*built, max_events=2_000_000)
+    want, oc = oracle["trace"], oracle["counters"]
     reg = registry_of(built[0])
     for name, st in runs.items():
         got = merged_engine_trace(st.trace, st.trace_n)
         if sorted(got) != sorted(want):
             raise AssertionError(f"{label} {name}: merged trace != oracle")
         c = st.counters.sum(0).cpu().numpy()
-        if not np.array_equal(c[mon.N_COUNTERS:],
-                              oc.numpy()[mon.N_COUNTERS:]):
+        if not np.array_equal(c[mon.N_COUNTERS:], oc[mon.N_COUNTERS:]):
             raise AssertionError(f"{label} {name}: model counters "
                                  f"{c[mon.N_COUNTERS:]} != oracle's "
-                                 f"{oc.numpy()[mon.N_COUNTERS:]}")
+                                 f"{oc[mon.N_COUNTERS:]}")
         for f in reg.delta_schema:
             a = getattr(st.world, f)[0].cpu().numpy()
-            b = getattr(ow, f).numpy()
-            if a.tobytes() != b.tobytes():
+            if a.tobytes() != oracle["world"][f].tobytes():
                 raise AssertionError(f"{label} {name}: world.{f} != oracle")
     ties = len(want) - len({(r[0], r[1]) for r in want})
     counts = {n: int(oc[i]) for n, i in reg.counters.items()
               if i >= mon.N_COUNTERS}
     print(f"[scenarios] {label}: {', '.join(runs)} == oracle in full-row "
           f"order ({len(want)} events, {ties} rows share (time, seq); "
-          f"{counts}; oracle {time.perf_counter() - t0:.1f} s)", flush=True)
+          f"{counts})", flush=True)
 
 
-def phase_scenarios(card: str) -> dict:
+def phase_scenarios(card: str, bg: Background) -> dict:
     """The replica-cache and failure/repair models on the card: stitched,
     fused and adaptive runs against the CPU run and the oracle; then the
     failure model's log replica on every unit draw and int32 payload bit
     patterns through both front ends."""
     import torch
-    from repro_torch.core import Engine
     from repro_torch.core.policy import ExecPolicy
     from repro_torch.scenarios import cache, failures
 
@@ -1759,12 +1892,11 @@ def phase_scenarios(card: str) -> dict:
     _e, st_f, ran_f, nums_f = run_model("cache fused", built, card,
                                         fused=True)
     state_equal(st_f, st)
-    t0 = time.perf_counter()
-    state_equal(st, Engine(*built, trace_cap=65536,
-                           device="cpu").run_local())
-    print(f"[scenarios] cache: fused cuda == stitched cuda == stitched cpu "
-          f"(cpu {time.perf_counter() - t0:.1f} s)", flush=True)
-    oracle_equal("cache", built, {"stitched": st, "fused": st_f})
+    state_equal(st, bg.get("cache cpu"))
+    print("[scenarios] cache: fused cuda == stitched cuda == stitched cpu",
+          flush=True)
+    oracle_equal("cache", built, {"stitched": st, "fused": st_f},
+                 bg.get("cache oracle"))
     out["cache"] = dict(stitched=nums, fused=nums_f, ops_per_window=ops)
 
     built, _ = failures.build_failure_scenario(**FAIL_KW)
@@ -1781,23 +1913,22 @@ def phase_scenarios(card: str) -> dict:
     policy = ExecPolicy(ladder=FAIL_LADDER)
     eng_a, st_a, ran_a, nums_a = run_model("failures adaptive", built, card,
                                            policy=policy)
-    t0 = time.perf_counter()
-    state_equal(st, Engine(*built, trace_cap=65536,
-                           device="cpu").run_local())
-    eng_c = Engine(*built, trace_cap=65536, device="cpu")
-    state_equal(st_a, eng_c.run_adaptive(max_windows=200_000,
-                                         policy=policy))
-    if eng_c.adaptive_rungs != eng_a.adaptive_rungs:
+    cpu_st, cpu_ada, cpu_rungs = bg.get("failures cpu")
+    state_equal(st, cpu_st)
+    state_equal(st_a, cpu_ada)
+    if tuple(cpu_rungs) != eng_a.adaptive_rungs:
         raise AssertionError("failures adaptive: the rungs differ on the cpu")
     rungs = {w: eng_a.adaptive_rungs.count(i)
              for i, w in enumerate(FAIL_LADDER)}
     print(f"[scenarios] failures: fused cuda == stitched cuda == stitched "
-          f"cpu, adaptive cuda == adaptive cpu (windows by width {rungs}; "
-          f"cpu {time.perf_counter() - t0:.1f} s)", flush=True)
+          f"cpu, adaptive cuda == adaptive cpu (windows by width {rungs})",
+          flush=True)
     oracle_equal("failures", built, {"stitched": st, "fused": st_f,
-                                     "adaptive": st_a})
+                                     "adaptive": st_a},
+                 bg.get("failures oracle"))
     out["failures"] = dict(stitched=nums, fused=nums_f, adaptive=nums_a,
                            ops_per_window=ops)
+    out["failures_run"] = (built, st)
 
     # the log replica on every value of the unit draw, card against cpu
     k = torch.arange(1 << 22, dtype=torch.int32)
@@ -2132,6 +2263,263 @@ def phase_host_layer(card: str, main_run: dict, dev: str = "cuda",
     print(f"[host layer] phase 4f: {time.perf_counter() - t0:.1f} s",
           flush=True)
     return out
+
+
+# --------------------------------------------------------------- phase 4g
+ENS_REPLICAS = 256
+ENS_FUSED = 32
+ENS_TRACE = 4096
+ENS_SOLO = (1, 128, 255)
+# the card-against-CPU cut: 16 farms over 4 agents, 4 replicas
+ENS_CUT = dict(FAIL_KW, n_farms=16, n_agents=4)
+ENS_CUT_SEEDS = (0, 37, 74, 111)
+# the catalog's t0t1 at a 16-wide window, so a 32-row ring holds one
+CLI_RUN_T0T1 = ["run", "t0t1", "--set", "exec_cap=16"]
+
+
+def state_bytes(st) -> int:
+    from repro_torch.core.engine import map_state
+    sizes = []
+    map_state(lambda x: sizes.append(x.numel() * x.element_size()), st)
+    return sum(sizes)
+
+
+def rows_seen(name: str, fn, seen: set):
+    """``fn`` that records (name, rows of its first argument) per call."""
+    def wrapped(x, *args, **kw):
+        seen.add((name, int(x.shape[0])))
+        return fn(x, *args, **kw)
+    return wrapped
+
+
+def profile_ensemble(eng, st, replicas: int, n: int = 10):
+    """``profile_windows`` over the ensemble's stacked state: the engine's
+    reductions and exchange grouped by replica, as ``run_ensemble`` runs
+    them."""
+    from repro_torch.kernels import ops
+    eng._replicas = replicas
+    try:
+        with ops.lane_groups(replicas):
+            return profile_windows(eng, st, n)
+    finally:
+        eng._replicas = 1
+
+
+def phase_ensemble(card: str, built, solo_st, solo: dict,
+                   bg: Background) -> dict:
+    """Phase 4g: the ensemble of 256 full-width failure models on the card,
+    then the ensemble and catalog entry points."""
+    import dataclasses
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.core import Engine, merged_engine_trace
+    from repro_torch.core import monitoring as mon
+    from repro_torch.core.engine import map_state, seed_rng_fields
+    from repro_torch.core.registry import registry_of
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import failures
+
+    t_phase = time.perf_counter()
+    R, spec = ENS_REPLICAS, built[3]
+    A = spec.n_agents
+    seeds = np.arange(R, dtype=np.int32)
+    probe = Engine(*built, trace_cap=ENS_TRACE, device="cuda")
+    per = state_bytes(probe.init_state())
+    n_pay = built[2].payload.shape[-1]
+    route = A * A * spec.route_cap * (6 * 4 + n_pay * 4 + 1)
+    print(f"[ensemble] reckoned: {per / 1e6:.3f} MB of state a replica "
+          f"({A} agents, pool_cap {spec.pool_cap}, trace {ENS_TRACE}) and "
+          f"{route / 1e6:.3f} MB of route buffers; {R} replicas "
+          f"{R * (per + route) / 1e9:.3f} GB", flush=True)
+    del probe
+
+    seen: set = set()
+    reg = registry_of(built[0])
+    hooks = dict(
+        select_fn=rows_seen("select_events", ops.select_events, seen),
+        group_fn=rows_seen("group_by_kind", functools.partial(
+            ops.group_by_kind, n_kinds=reg.n_kinds), seen),
+        route_fn=rows_seen("route_rank", functools.partial(
+            ops.route_rank, n_buckets=A + 1), seen),
+        trace_fn=rows_seen("trace_rank", ops.trace_rank, seen))
+    eng = Engine(*built, trace_cap=ENS_TRACE, device="cuda", **hooks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.run_ensemble(seeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = launches()
+    peak = torch.cuda.max_memory_allocated()
+    windows = out.windows[:, 0].cpu().numpy()
+    steps = int(windows.max())
+    c = out.counters.sum((0, 1)).cpu()
+    events = int(c[mon.C_EVENTS])
+    if not bool(out.done.all()):
+        raise AssertionError("ensemble: a replica is not done")
+    for i in mon.DROP_COUNTERS + (mon.C_TRACE_DROP,):
+        if int(c[i]) != 0:
+            raise AssertionError(f"ensemble: counter "
+                                 f"{mon.BUILTIN_COUNTERS[i][0]} = {int(c[i])}")
+    if int(out.trace_n.max()) > ENS_TRACE:
+        raise AssertionError("ensemble: a trace outgrew its buffer")
+    once = {k: ran[k] for k in STITCHED_HOOKS}
+    if once != {k: steps for k in STITCHED_HOOKS}:
+        raise AssertionError(f"ensemble: launches {once}, {steps} windows")
+    if seen != {(k, R * A) for k in STITCHED_HOOKS}:
+        raise AssertionError(f"ensemble: rows per launch {sorted(seen)}")
+    if len(set(windows.tolist())) < 2:
+        raise AssertionError("ensemble: every replica took the same windows")
+    solo_rate = solo["events"] / solo["wall"]
+    print(f"[ensemble] failures x {R} replicas stitched cuda: {steps} "
+          f"windows (replicas {int(windows.min())}-{steps}), {events} "
+          f"events, wall {wall:.3f} s, {events / wall:.1f} events/s (phase "
+          f"4e's single run in this call: {solo['windows']} windows, "
+          f"{solo['wall']:.3f} s, {solo_rate:.1f} events/s); "
+          f"{wall / steps * 1e3:.3f} ms/window (4e "
+          f"{solo['wall'] / solo['windows'] * 1e3:.3f}); host reads/window "
+          f"{eng.host_reads / steps:.4f} (4e "
+          f"{solo['host_reads'] / solo['windows']:.4f}); fallback "
+          f"steps/window {eng.fallback_steps / steps:.2f} (4e "
+          f"{solo['fallback_steps'] / solo['windows']:.2f}); fallback "
+          f"rows/window {int(c[mon.C_BATCH_FALLBACK]) / steps:.2f}; launches "
+          f"{ran}, every one at {R * A} rows; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({card})", flush=True)
+    t0 = time.perf_counter()
+    ms, ops_w, busy = profile_ensemble(eng, eng.ensemble_state(seeds), R)
+    print(f"[ensemble] windows 0..10 profiled: {ms:.3f} ms/window, "
+          f"{ops_w:.1f} device ops/window, device busy {busy:.4f} of the "
+          f"wall ({card}; {time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # replica 0 (seed 0 perturbs nothing) is phase 4e's card run, whose
+    # trace buffer is larger: the trace by its written rows
+    r0 = map_state(lambda x: x[0], out)
+    state_equal(r0, solo_st, parts=("world", "pool", "counters", "t_now",
+                                     "done", "windows", "trace_n",
+                                     "trace_tail"))
+    for a, n in enumerate(r0.trace_n.tolist()):
+        if not torch.equal(r0.trace[a, :n], solo_st.trace[a, :n]):
+            raise AssertionError(f"ensemble replica 0: agent {a}'s trace")
+    t0 = time.perf_counter()
+    one_eng = Engine(*built, trace_cap=ENS_TRACE, device="cuda")
+    for r in ENS_SOLO:
+        one = one_eng.run_local(state=seed_rng_fields(
+            one_eng.init_state(),
+            torch.tensor(r, dtype=torch.int32, device="cuda")))
+        state_equal(map_state(lambda x, r=r: x[r], out), one)
+    t_solo = time.perf_counter() - t0
+    r = ENS_SOLO[-1]
+    want = bg.get("ensemble oracle")["trace"]
+    rr = map_state(lambda x: x[r], out)
+    if sorted(merged_engine_trace(rr.trace, rr.trace_n)) != sorted(want):
+        raise AssertionError(f"ensemble replica {r}: trace != oracle")
+    print(f"[ensemble] replica 0 == phase 4e's stitched card run (the trace "
+          f"by its written rows); replicas {ENS_SOLO} == card run_local of "
+          f"their seeded states ({t_solo:.1f} s); replica {r}'s merged "
+          f"trace == the oracle of its seeded world in full-row order "
+          f"({len(want)} events)", flush=True)
+
+    # the fused front end, 32 replicas
+    fspec = dataclasses.replace(spec, fused_select=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    fused = Engine(*built[:3], fspec, trace_cap=ENS_TRACE,
+                   device="cuda").run_ensemble(seeds[:ENS_FUSED])
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t0
+    f_ran = launches()
+    state_equal(fused, map_state(lambda x: x[:ENS_FUSED], out))
+    if f_ran["select_events"] or f_ran["group_by_kind"] or not (
+            f_ran["fused_select"] and f_ran["ring_slots"]):
+        raise AssertionError(f"fused ensemble: launches {f_ran}")
+    print(f"[ensemble] fused x {ENS_FUSED} == the first {ENS_FUSED} "
+          f"stitched replicas ({f_wall:.3f} s, launches {f_ran})",
+          flush=True)
+    del out, fused, rr, r0
+
+    # card against cpu on a cut
+    cut, _ = failures.build_failure_scenario(**ENS_CUT)
+    t0 = time.perf_counter()
+    on_card = Engine(*cut, trace_cap=ENS_TRACE,
+                     device="cuda").run_ensemble(ENS_CUT_SEEDS)
+    t_card = time.perf_counter() - t0
+    state_equal(on_card, bg.get("cut cpu"))
+    print(f"[ensemble] {len(ENS_CUT_SEEDS)} replicas of the "
+          f"{ENS_CUT['n_farms']}-farm, {ENS_CUT['n_agents']}-agent cut (seeds "
+          f"{list(ENS_CUT_SEEDS)}): cuda == cpu (cuda {t_card:.1f} s)",
+          flush=True)
+    entry = phase_ensemble_entry(card, bg)
+    took = time.perf_counter() - t_phase
+    print(f"[ensemble] phase 4g: {took:.1f} s", flush=True)
+    return dict(wall=wall, events=events, windows=steps, launches=ran,
+                entry=entry, seconds=took)
+
+
+def phase_ensemble_entry(card: str, bg: Background) -> dict:
+    """``simulate ensemble`` and ``simulate run`` on the card: the lines
+    of ``--device cpu``, the injected preemption with the stream check, and
+    the SIGKILL lane resumed by the same command."""
+    import signal
+    import tempfile
+    from repro_torch.launch import simulate
+
+    took: dict = {}
+
+    def timed(key, argv):
+        t0 = time.perf_counter()
+        lines = simulate.main(argv)
+        took[key] = time.perf_counter() - t0
+        return lines
+
+    ens = {"cuda": timed("ensemble", ["ensemble", "--device", "cuda"]),
+           "cpu": bg.get("cli ensemble")}
+    if ens["cuda"] != ens["cpu"]:
+        raise AssertionError(f"simulate ensemble: {ens}")
+    listing = timed("run --list", ["run", "--list", "--device", "cuda"])
+    if len(listing) != 8:
+        raise AssertionError(f"simulate run --list: {listing}")
+    farm = {"cuda": timed("ensemble_farm",
+                          ["run", "ensemble_farm", "--device", "cuda"]),
+            "cpu": bg.get("cli run ensemble_farm")}
+    if farm["cuda"] != farm["cpu"]:
+        raise AssertionError(f"simulate run ensemble_farm: {farm}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pre = timed("t0t1 preempted", [
+            *CLI_RUN_T0T1, "--device", "cuda", "--checkpoint-dir",
+            os.path.join(tmp, "pre"), "--preempt-at-window", "12",
+            "--preempt-survivors", "1", "--stream-trace", "32",
+            "--stream-check"])
+        if "preempt=1 resume=1" not in pre[0] or not pre[1].startswith(
+                "[stream-check] OK:"):
+            raise AssertionError(f"simulate run t0t1 preempted: {pre}")
+        whole = timed("t0t1", [*CLI_RUN_T0T1, "--device", "cuda"])[0]
+        kill = [*CLI_RUN_T0T1, "--device", "cuda", "--checkpoint-dir",
+                os.path.join(tmp, "kill")]
+        t0 = time.perf_counter()
+        dead = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.simulate", *kill,
+             "--kill-after-window", "24"], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=SRC), timeout=600, cwd=ROOT)
+        took["t0t1 killed"] = time.perf_counter() - t0
+        if dead.returncode != -signal.SIGKILL or "[run]" in dead.stdout:
+            raise AssertionError(f"--kill-after-window: exit "
+                                 f"{dead.returncode}: {dead.stderr[-2000:]}")
+        resumed = timed("t0t1 resumed", kill)[0]
+        if resumed != whole.replace("preempt=0 resume=0",
+                                    "preempt=1 resume=1"):
+            raise AssertionError(f"run t0t1 resumed: {resumed!r} against "
+                                 f"{whole!r}")
+    secs = {k: round(v, 1) for k, v in took.items()}
+    print(f"[ensemble] simulate ensemble: cuda == cpu: {ens['cuda'][1]!r}; "
+          f"run --list: {len(listing) // 2} entries; run ensemble_farm: "
+          f"cuda == cpu: {farm['cuda'][0]!r}; run t0t1 preempted at window "
+          f"12: {pre[0]!r}, {pre[1]!r}; killed by SIGKILL after the "
+          f"checkpoint at window 24 and resumed by the same command: "
+          f"{resumed!r} (uninterrupted {whole!r}); seconds {secs} ({card})",
+          flush=True)
+    return took
 
 
 # --------------------------------------------------------------- phase 3z
@@ -2641,7 +3029,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
-    from repro_torch.kernels import build
     from repro_torch.kernels import event_select as es
     from repro_torch.kernels import ref
 
@@ -2649,6 +3036,16 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__}; CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}",
           flush=True)
+    bg = Background()
+    try:
+        return run_phases(card, es, ref, bg)
+    finally:
+        bg.close()
+
+
+def run_phases(card: str, es, ref, bg: Background) -> int:
+    import torch
+    from repro_torch.kernels import build
     build.build_all()
     for name, info in build.build_info.items():
         print(f"[build] {name}: {info['seconds']:.2f} s -> {info['path']}",
@@ -2675,13 +3072,15 @@ def main() -> int:
     # before phase 4's profiles: after a long profiled run, a short one
     # records no device op (device_ms needs them)
     timings.update(phase_zoo_kernels())
-    main_run = phase_main_path(card)
+    main_run = phase_main_path(card, bg)
     fused_run = phase_fused_path(card, main_run)
-    phase_workload(card)
+    phase_workload(card, bg)
     phase_profile(card, fused=False)
     phase_profile(card, fused=True)
     phase_entry_point()
-    phase_scenarios(card)
+    scen = phase_scenarios(card, bg)
+    phase_ensemble(card, *scen.pop("failures_run"),
+                   scen["failures"]["stitched"], bg)
     phase_host_layer(card, main_run)
     phase_model_path(card)
     served = phase_serve(card)

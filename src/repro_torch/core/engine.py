@@ -26,6 +26,11 @@ by an O(pool_cap) rank scan and reclaims by a pool-wide mask;
 whole-table copies. All options give the same trace, counters and world;
 ``insert_mode`` changes the slot layout and the ring diagnostics.
 
+``run_ensemble`` runs R seeded replicas of the state as one fleet of R * A
+rows: every per-agent step (and kernel launch) takes all rows at once, and
+the GVT, the routing exchange and the owner-wins sync act within each
+replica's A rows (``Engine._replicas``).
+
 The reference runs this inside a jitted ``while_loop``; here the host steps
 one window at a time and syncs twice per window: it reads ``done`` (with
 ``trace_n`` when a trace stream is attached), and it reads one small tensor
@@ -76,6 +81,39 @@ class EngineState(NamedTuple):
 
 def _to(x, device):
     return type(x)(*(t.to(device) for t in x))
+
+
+def map_state(fn, *states: EngineState) -> EngineState:
+    """``fn`` over every tensor of one or more states, field by field."""
+    first = states[0]
+    return EngineState(
+        world=type(first.world)(*map(fn, *(s.world for s in states))),
+        pool=type(first.pool)(*map(fn, *(s.pool for s in states))),
+        **{k: fn(*(getattr(s, k) for s in states))
+           for k in EngineState._fields[2:]})
+
+
+def seed_rng_fields(state: EngineState, seed) -> EngineState:
+    """The default ensemble ``seed_fn``: add ``seed * 7919`` to every integer
+    world field named ``rng`` or ``*_rng`` (the registry's convention for
+    in-handler LCG states), wrapping as int32 does, which is the affine jump
+    the scenario builders space their per-row streams with. Any int32 is a
+    valid LCG state, so the perturbed replica is exact under the oracle with
+    the same world; a model with no RNG field gives identical replicas."""
+    upd = {}
+    for name in state.world._fields:
+        if name != "rng" and not name.endswith("_rng"):
+            continue
+        f = getattr(state.world, name)
+        if f.dtype.is_floating_point or f.dtype.is_complex or \
+                f.dtype == torch.bool:
+            continue
+        bits = torch.iinfo(f.dtype).bits
+        s = torch.as_tensor(seed, device=f.device).to(torch.int64)
+        v = f.to(torch.int64) + s * 7919
+        half = 1 << (bits - 1)
+        upd[name] = ((v + half) % (1 << bits) - half).to(f.dtype)
+    return state._replace(world=state.world._replace(**upd)) if upd else state
 
 
 def fused_select_xla(time_key, seq, safe, time, kind, src, dst, ctx, payload,
@@ -144,13 +182,17 @@ class Engine:
         self.checkpointer = checkpointer
         self.window_hook = window_hook
         self.drain_every = int(drain_every)
+        # replicas stacked on the agent dimension (run_ensemble's R)
+        self._replicas = 1
         if self.drain_every < 1:
             raise ValueError(f"drain_every must be >= 1, got {drain_every}")
         if trace_stream is not None and trace_cap <= 0:
             raise ValueError(
                 "a TraceStream needs a device-side ring: pass trace_cap > 0")
-        # host reads of device tensors, and the drains' ring copies
+        # host reads of device tensors, the conflict fallback's sequential
+        # steps, and the drains' ring copies
         self.host_reads = 0
+        self.fallback_steps = 0
         self.drains = 0
         self.drain_bytes = 0
         if spec.merge_mode not in ("delta", "dense"):
@@ -245,7 +287,7 @@ class Engine:
         # earliest exec_cap slots
         with record_function("window.select"):
             lmin = sync.local_min_per_ctx(pool, spec.n_ctx)
-            gvt = sync.global_min(lmin)
+            gvt = sync.global_min(lmin, self._replicas)
             horizon = sync.horizons(gvt, spec.lookahead, spec.t_end)
             done = sync.all_done(gvt, spec.t_end)
             safe = sync.safe_mask(pool, horizon)
@@ -312,7 +354,8 @@ class Engine:
 
         # 7. replicated-state sync, then the pool gauges
         with record_function("window.sync"):
-            world = self.registry.sync_world(world, self.own)
+            world = self.registry.sync_world(world, self.own,
+                                             self._replicas)
             counters = mon.gauge(counters, mon.C_POOL_OCC, ev.occupancy(pool))
             counters = mon.gauge(counters, mon.C_POOL_FREE, pool.free_count)
 
@@ -323,7 +366,9 @@ class Engine:
 
     def _row_events(self, cand: ev.EventBatch, idx: torch.Tensor) -> Ev:
         """One candidate row per agent (``idx`` (A,), clamped) as handler
-        lanes, lane ``a`` on agent ``a``."""
+        lanes, lane ``a`` on agent ``a``: ``Ev.agent`` is a row of the
+        stacked state, an ensemble's replicas included (no handler compares
+        it with ``lp_agent``)."""
         A, m = cand.time.shape
         a = torch.arange(A, device=idx.device)
         i = idx.clamp(0, m - 1).long()
@@ -443,6 +488,7 @@ class Engine:
         # conflict fallback: sequential fold over each agent's dirty rows
         counters = mon.bump(counters, mon.C_BATCH_FALLBACK, n_dirty)
         a = torch.arange(A, device=dev)
+        self.fallback_steps += max(n_dirty_h)
         for k in range(max(n_dirty_h)):
             p = dpos[:, k]
             active = k < n_dirty
@@ -496,9 +542,11 @@ class Engine:
         ``migrate`` is the placement migration's flavour: rows shipped to
         another agent are booked in ``C_MIGRATE_OUT`` (after the route cap)
         and rows received in ``C_MIGRATE_IN`` (before the insert), so the
-        two sum to the same total; a receiver's overflow is ``C_DROP_POOL``."""
+        two sum to the same total; a receiver's overflow is ``C_DROP_POOL``.
+        An ensemble exchanges within each replica: (R, A_src, A_dst,
+        route_cap), ``me`` the agent's id within its replica."""
         spec = self.spec
-        A = spec.n_agents
+        A, R = spec.n_agents, self._replicas
         if A == 1:
             pool, counters, dropped = self._insert(pool, counters, emits)
             counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
@@ -507,7 +555,7 @@ class Engine:
             return pool, counters
 
         dev = emits.time.device
-        me = tu.arange(A, dev)[:, None]
+        me = tu.arange(A, dev).repeat(R)[:, None]
         rcap = spec.route_cap
         dst_agent = torch.where(
             emits.valid,
@@ -530,12 +578,12 @@ class Engine:
         # the all_to_all: scatter into (A_src, A_dst * route_cap), then
         # transpose so agent d receives every source's block d in order
         fills = (ev.T_INF, 0, 0, 0, 0, 0, 0.0, False)
-        bufs = [torch.full((A, A * rcap) + col.shape[2:], fill,
+        bufs = [torch.full((R * A, A * rcap) + col.shape[2:], fill,
                            dtype=col.dtype, device=dev)
                 for col, fill in zip(emits, fills)]
         rx = ev.EventBatch(*(
-            b.reshape((A, A, rcap) + b.shape[2:]).transpose(0, 1).reshape(
-                (A, A * rcap) + b.shape[2:])
+            b.reshape((R, A, A, rcap) + b.shape[2:]).transpose(1, 2).reshape(
+                (R * A, A * rcap) + b.shape[2:])
             for b in tu.scatter_rows_many(bufs, flat, list(emits))))
         if migrate:
             counters = mon.bump(counters, mon.C_MIGRATE_IN,
@@ -758,3 +806,72 @@ class Engine:
             self._window_end(st, w + 1, rung=rung, host_counters=host)
         self.adaptive_rungs = tuple(rungs)
         return self._finalize_streams(st)
+
+    # ------------------------------------------------------- ensemble driver
+    def ensemble_state(self, seeds, seed_fn: Callable | None = None
+                       ) -> EngineState:
+        """The (R * A, ...) initial state of an ensemble: replica r is
+        ``seed_fn(init_state(), seeds[r])`` (default
+        :func:`seed_rng_fields`), stacked replica by replica."""
+        seeds = np.asarray(seeds).astype(np.int32).reshape(-1)
+        sfn = seed_fn or seed_rng_fields
+        base = self.init_state()
+        seeds_dev = torch.as_tensor(seeds, device=self.device)
+        reps = [sfn(base, seeds_dev[r]) for r in range(seeds.shape[0])]
+        return map_state(lambda *xs: torch.stack(xs).reshape(
+            (-1,) + xs[0].shape[1:]), *reps)
+
+    def run_ensemble(self, seeds, max_windows: int = 10_000,
+                     seed_fn: Callable | None = None) -> EngineState:
+        """Monte Carlo over seeds: R replicas of the initial state, replica
+        r perturbed by ``seed_fn(state, seeds[r])`` (default
+        :func:`seed_rng_fields`), run as one fleet of R * A rows, so each
+        kernel launches once a window for all replicas. A replica stops at
+        its own end: rows of a done replica (or one at ``max_windows``) keep
+        the state they had, as the reference's batched ``while_loop``
+        selects them, so replica r's slice of the (R, A, ...) result equals
+        a ``run_local`` of its seeded state byte for byte. The host reads
+        every replica's ``done`` and window count once a window, and the
+        fallback's counts once, as ``run_local`` does. With a
+        ``metrics_stream``, the per-replica counter totals land in it
+        (``MetricsStream.ensemble``)."""
+        if self.trace_stream is not None:
+            raise ValueError(
+                "run_ensemble cannot stream traces (io_callback is "
+                "unsupported under the nested replica vmap); use a bounded "
+                "trace_cap for per-replica traces")
+        if self._checkpointing:
+            raise ValueError(
+                "run_ensemble is one fused program with no window "
+                "boundaries on the host; checkpoint cadence applies to the "
+                "single-run drivers")
+        seeds = np.asarray(seeds).astype(np.int32).reshape(-1)
+        R, A = seeds.shape[0], self.spec.n_agents
+        st = self.ensemble_state(seeds, seed_fn)
+        self._replicas = R
+        try:
+            with ops.lane_groups(R):
+                while True:
+                    host = self._read(torch.cat([st.done[::A].to(I32),
+                                                 st.windows[::A]]))
+                    active = (host[:R] == 0) & (host[R:] < max_windows)
+                    if not active.any():
+                        break
+                    new = self._superstep(st)
+                    if active.all():
+                        st = new
+                    else:
+                        keep = torch.as_tensor(np.repeat(active, A),
+                                               device=self.device)
+                        st = map_state(lambda n, o: torch.where(
+                            keep.reshape((-1,) + (1,) * (n.ndim - 1)), n, o),
+                            new, st)
+        finally:
+            self._replicas = 1
+        out = map_state(lambda x: x.reshape((R, A) + x.shape[1:]), st)
+        ms = self.metrics_stream
+        if ms is not None:
+            ms.begin(A, self.registry)
+            ms.ensemble(seeds, out.counters.cpu().numpy(),
+                        out.windows.cpu().numpy(), out.t_now.cpu().numpy())
+        return out

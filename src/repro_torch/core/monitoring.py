@@ -1,6 +1,5 @@
 """Per-agent monitoring counters and the host streams (counterpart of
-``repro.core.monitoring``; the ensemble reduction of ``MetricsStream`` waits
-for the ensemble driver).
+``repro.core.monitoring``).
 
 Counters are an int32 vector per agent, (A, n_counters) in the engine state.
 Handlers bump per-lane increment vectors of shape (B, n_counters).
@@ -427,3 +426,46 @@ class MetricsStream:
         got = {a: (int(t_now[a]), counters[a])
                for a in range(min(self.n_agents, counters.shape[0]))}
         self._emit(int(windows[0]), got, final=True)
+
+    # ------------------------------------------------------ ensemble support
+    def ensemble(self, seeds, counters, windows, t_now) -> dict:
+        """Reduce an ``Engine.run_ensemble`` result into the stream.
+
+        ``counters`` is the (R, A, N) counter table of R replicas; each
+        replica's agents sum to its fleet totals, kept as
+        ``self.replica_counters`` (R, N) beside ``self.replica_seeds`` (one
+        replica's books come back through :meth:`replica`). One summary
+        record (min, mean and max over replicas per counter, and the
+        ensemble's totals) lands on ``out`` and in ``self.lines``."""
+        seeds = np.asarray(seeds)
+        counters = np.asarray(counters)
+        windows = np.asarray(windows)
+        t_now = np.asarray(t_now)
+        self.replica_seeds = seeds.copy()
+        self.replica_counters = counters.sum(axis=1)
+        total = self.replica_counters.sum(axis=0)
+        rec = {
+            "ensemble": int(seeds.shape[0]),
+            "agents": self.n_agents,
+            "windows": [int(windows.min()), int(windows.max())],
+            "gvt": [int(t_now.min()), int(t_now.max())],
+            "counters": {name: int(total[i])
+                         for name, i in self._names.items()},
+            "per_replica": {
+                name: {"min": int(self.replica_counters[:, i].min()),
+                       "mean": float(self.replica_counters[:, i].mean()),
+                       "max": int(self.replica_counters[:, i].max())}
+                for name, i in self._names.items()},
+        }
+        self.latest = rec
+        self.lines.append(rec)
+        if self.out is not None:
+            self.out.write(json.dumps(rec) + "\n")
+            self.out.flush()
+        return rec
+
+    def replica(self, r: int) -> dict:
+        """One replica's fleet-total counters by name (after
+        :meth:`ensemble`)."""
+        return {name: int(self.replica_counters[r, i])
+                for name, i in self._names.items()}

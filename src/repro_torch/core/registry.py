@@ -532,30 +532,35 @@ class Registry:
                     [delta[f] for f in fields])))
         return world._replace(**out)
 
-    def sync_world(self, world, own):
+    def sync_world(self, world, own, n_groups: int = 1):
         """Owner-wins replication sync over the agent dimension.
 
         Mutable fields sum ``where(mine, row, 0)`` over agents (one nonzero
         contribution per row, so the order of the sum does not matter); int
         fields with a nonzero fill are shifted so the pad value survives; bool
         fields sum as int32, then ``> 0``. A single agent is the identity.
+        ``n_groups`` splits the rows into that many equal runs (an
+        ensemble's replicas), each synced over its own agents.
         """
-        A = world.lp_kind.shape[0]
+        G = n_groups
+        A = world.lp_kind.shape[0] // G
         if A == 1:
             return world
-        me = torch.arange(A, dtype=torch.int32, device=world.lp_kind.device)
+        me = torch.arange(A, dtype=torch.int32,
+                          device=world.lp_kind.device).repeat(G)
 
         def owner_wins(x, mask):
             m = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
+            g = (G, A) + x.shape[1:]
             if x.dtype == torch.bool:
-                y = torch.where(m, x.to(torch.int32), 0).sum(
-                    0, dtype=torch.int32) > 0
+                y = torch.where(m, x.to(torch.int32), 0).reshape(g).sum(
+                    1, dtype=torch.int32) > 0
             elif x.dtype == torch.int32:
-                y = torch.where(m, x, 0).sum(0, dtype=torch.int32)
+                y = torch.where(m, x, 0).reshape(g).sum(1, dtype=torch.int32)
             else:
-                y = torch.where(m, x, torch.zeros((), dtype=x.dtype,
-                                                  device=x.device)).sum(0)
-            return y[None].expand_as(x).contiguous()
+                y = torch.where(m, x, torch.zeros(
+                    (), dtype=x.dtype, device=x.device)).reshape(g).sum(1)
+            return y[:, None].expand(g).reshape(x.shape)
 
         lp_mine = world.lp_agent == me[:, None]
         out = {"lp_state": owner_wins(world.lp_state, lp_mine),

@@ -9,9 +9,10 @@ the agents already in the run; the lowest score wins, so the LPs of one run
 cluster. All-pairs shortest paths are min-plus matrix squaring.
 
 The scores equal the reference's bit for bit: the float32 sums over agents
-run left to right, which is XLA:CPU's order up to 32 agents (a probe of
-this package's tests; beyond that XLA sums in blocks), and the mean is the
-sum times the float32 reciprocal of the count, as XLA computes it.
+run in XLA:CPU's order (``sum_chunks``: left to right up to 32 agents, then
+in chunks, as ``tools/probe_sum_order.py`` reads it at 33-128 agents), and
+the mean is the sum times the float32 reciprocal of the count, as XLA
+computes it.
 Placements are int32 and equal. Component state is replicated, so a
 migration only rewrites ``lp_agent`` and re-homes pending events
 (``Engine.apply_placement_local``).
@@ -28,12 +29,37 @@ from repro_torch.core import monitoring as mon
 F32 = torch.float32
 
 
+# the largest agent count whose sum order was probed; beyond it the sums
+# run left to right (ROADMAP.md, section 3)
+PROBED_AGENTS = 128
+
+
+def sum_chunks(n: int) -> list[int]:
+    """XLA:CPU's partition of a float32 sum over ``n`` values (jax 0.9.0,
+    read at every n = 33-128 by ``tools/probe_sum_order.py``; the same for
+    ``jnp.sum``, ``jnp.mean`` and the row sums of an (n, n) matrix, op by op
+    or jitted): up to 32 values one chunk; else ``ceil(n / 32)`` chunks,
+    the inner ones of 32, the rest split between the two ends, the first
+    taking the odd one. Each chunk sums left to right, and so do the chunk
+    totals. Beyond ``PROBED_AGENTS``: one chunk."""
+    k = -(-n // 32)
+    if k <= 1 or n > PROBED_AGENTS:
+        return [n]
+    r = n - 32 * (k - 2)
+    return [r - r // 2] + [32] * (k - 2) + [r // 2]
+
+
 def _sum_last(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, left to right in float32."""
-    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    for k in range(x.shape[-1]):
-        acc = acc + x[..., k]
-    return acc
+    """Sum over the last axis in float32, in XLA:CPU's order
+    (``sum_chunks``)."""
+    total = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    lo = 0
+    for n in sum_chunks(x.shape[-1]):
+        acc = torch.zeros_like(total)
+        for k in range(lo, lo + n):
+            acc = acc + x[..., k]
+        total, lo = total + acc, lo + n
+    return total
 
 
 def performance_graph(perf: torch.Tensor,

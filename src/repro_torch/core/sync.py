@@ -20,10 +20,13 @@ def local_min_per_ctx(pool: ev.EventPool, n_ctx: int) -> torch.Tensor:
     return ev.min_pending_time_per_ctx(pool, n_ctx)
 
 
-def global_min(x: torch.Tensor) -> torch.Tensor:
+def global_min(x: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
     """Min over the agent dimension, broadcast back to every agent — the
-    collective null-message exchange."""
-    return torch.amin(x, dim=0, keepdim=True).expand_as(x)
+    collective null-message exchange. ``n_groups`` splits the rows into that
+    many equal runs (an ensemble's replicas, each its own fleet of agents)
+    and takes the min within each."""
+    g = x.reshape((n_groups, -1) + x.shape[1:])
+    return torch.amin(g, dim=1, keepdim=True).expand_as(g).reshape(x.shape)
 
 
 def horizons(gvt: torch.Tensor, lookahead: int, t_end: int) -> torch.Tensor:

@@ -14,6 +14,9 @@ run the kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 from repro_torch.kernels import bandwidth_share as _bs
@@ -24,6 +27,22 @@ from repro_torch.kernels import rwkv6_scan as _gla
 from repro_torch.kernels import ssm_scan as _ssd
 
 I32 = torch.int32
+
+# Replicas stacked on the lanes of a handler call (``Engine.run_ensemble``).
+# The reference's replica vmap leaves the one-lane flow-sum order of a
+# replica as it is in a run of its own, so ``maxmin_rates`` takes the order
+# of the lanes of one replica.
+_lane_groups = contextvars.ContextVar("lane_groups", default=1)
+
+
+@contextlib.contextmanager
+def lane_groups(n: int):
+    """Within the block, a call's B lanes are ``n`` replicas of B / n."""
+    token = _lane_groups.set(int(n))
+    try:
+        yield
+    finally:
+        _lane_groups.reset(token)
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -120,14 +139,15 @@ def fused_select(time_key, seq, safe, time, kind, src, dst, ctx, payload,
 
 def maxmin_rates(inc, bw, active):
     """(B, F, L) 0/1 incidence, (B, L) capacities, (B, F) active -> (B, F)
-    max-min fair rates, the flows summed in ``ref.flow_order``."""
+    max-min fair rates, the flows summed in ``ref.flow_order`` of the lanes
+    of one replica (``lane_groups``)."""
+    B, F, L = inc.shape
+    order = _ref.flow_order(F, L, B // _lane_groups.get())
     if _on_card(inc):
-        B, F, L = inc.shape
         return _bs.maxmin_rates(inc.float().contiguous(),
                                 bw.float().contiguous(),
-                                active.bool().contiguous(),
-                                _ref.flow_order(F, L, B))
-    return _ref.maxmin_rates(inc, bw, active)
+                                active.bool().contiguous(), order)
+    return _ref.maxmin_rates(inc, bw, active, order)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -332,10 +332,13 @@ def _halves(lanes: list):
     return lanes[0]
 
 
-def _sum_flows(contrib: torch.Tensor) -> torch.Tensor:
-    """(F, B, L) -> (B, L): the sum over flows in :func:`flow_order`."""
+def _sum_flows(contrib: torch.Tensor, order: FlowOrder | None = None
+               ) -> torch.Tensor:
+    """(F, B, L) -> (B, L): the sum over flows in ``order`` (default
+    :func:`flow_order` of the B lanes)."""
     F, B, L = contrib.shape[:3]
-    V, blocks, chains, W, trailing = flow_order(F, L, B)
+    V, blocks, chains, W, trailing = (flow_order(F, L, B) if order is None
+                                      else order)
     if not V:
         acc = contrib[0]
         for f in range(1, F):
@@ -364,7 +367,8 @@ def _sum_flows(contrib: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _fill_rounds(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor):
+def _fill_rounds(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
+                 order: FlowOrder | None = None):
     """The L rounds of progressive filling: yields ``(rate, newly)`` after
     each round, ``newly`` the flows it froze."""
     B, F, L = inc.shape
@@ -378,7 +382,7 @@ def _fill_rounds(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor):
         n_unf = torch.sum(inc * unfrozen[..., None].to(torch.float32), dim=1)
         contrib = (inc * (rate * frozen.to(torch.float32))[..., None]
                    ).transpose(0, 1).contiguous()          # (F, B, L)
-        used = _sum_flows(contrib)
+        used = _sum_flows(contrib, order)
         resid = torch.clamp_min(bw - used, 0.0)
         fair = torch.where(n_unf > 0, resid / torch.clamp_min(n_unf, 1.0), big)
         fair = torch.where((bw <= 0) & (n_unf > 0), 0.0, fair)
@@ -391,18 +395,18 @@ def _fill_rounds(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor):
         yield rate, newly
 
 
-def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor
-                 ) -> torch.Tensor:
+def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
+                 order: FlowOrder | None = None) -> torch.Tensor:
     """Progressive-filling max-min fair rates over lanes.
 
     inc: (B, F, L) 0/1, bw: (B, L), active: (B, F) bool -> (B, F) rates.
     L rounds, each freezing every flow that crosses a bottleneck link. The
     per-link sum of frozen rates (``inc.T @ (rate * frozen)`` in the
     reference) is a sum of explicit additions in XLA:CPU's order
-    (:func:`flow_order`), never a BLAS call or ``torch.sum``, whose orders
-    differ between devices."""
+    (``order``, default :func:`flow_order` of the B lanes), never a BLAS
+    call or ``torch.sum``, whose orders differ between devices."""
     rate = torch.zeros(active.shape, dtype=torch.float32, device=inc.device)
-    for rate, _newly in _fill_rounds(inc, bw, active):
+    for rate, _newly in _fill_rounds(inc, bw, active, order):
         pass
     return torch.where(active, rate, 0.0)
 

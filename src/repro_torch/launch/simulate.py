@@ -1,5 +1,5 @@
-"""Simulation launcher of the port (the ``t0t1`` and ``workload`` modes of
-``repro.launch.simulate``).
+"""Simulation launcher of the port (the ``t0t1``, ``workload``,
+``ensemble`` and ``run`` modes of ``repro.launch.simulate``).
 
   t0t1      reproduce the paper's §3.1 CERN study: a T0 -> T1 WAN bandwidth
             sweep, printing events, stale completions, interrupts, MB moved
@@ -7,6 +7,15 @@
             monitoring-driven width ladder (``Engine.run_adaptive``)
   workload  simulate a training cell from each dry-run roofline JSON record
             in ``--results`` (``core/workload.py``)
+  ensemble  a Monte Carlo failure-farm ensemble: ``--replicas`` seeds in one
+            ``Engine.run_ensemble`` (one JSON summary record, then the
+            ``[ensemble]`` line)
+  run       a catalog scenario (``scenarios/catalog.py``; ``--list`` prints
+            the catalog) through ``fleet.Orchestrator``: checkpoints,
+            injected (``--preempt-at-window``) and SIGKILL
+            (``--kill-after-window``) preemptions, resume, retry caps;
+            ``--devices N`` counts devices, and N > 1 (the distributed
+            drivers) is not ported yet
 
 ``t0t1`` takes the host layer's options. ``--stream-trace CAP`` streams the
 whole trace through a CAP-row ring (the line gains ``streamed=...
@@ -56,18 +65,18 @@ def exec_policy_args(args, pool_cap: int) -> dict:
 
 
 def build_streams(args):
-    """(engine kwargs, TraceStream or None) from the streaming options;
-    the metrics records go to stdout."""
-    kw, ts = {}, None
+    """(engine kwargs, TraceStream or None, MetricsStream or None) from the
+    streaming options; the metrics records go to stdout."""
+    kw, ts, ms = {}, None, None
     if args.stream_trace is not None:
         ts = mon.TraceStream()
         kw.update(trace_cap=args.stream_trace, trace_stream=ts,
                   drain_every=args.drain_every)
     if args.metrics_interval is not None:
-        kw.update(metrics_stream=mon.MetricsStream(
-            interval=args.metrics_interval, out=sys.stdout),
-            drain_every=args.drain_every)
-    return kw, ts
+        ms = mon.MetricsStream(interval=args.metrics_interval,
+                               out=sys.stdout)
+        kw.update(metrics_stream=ms, drain_every=args.drain_every)
+    return kw, ts, ms
 
 
 def build_checkpointer(args, directory=None):
@@ -129,7 +138,7 @@ def run_t0t1(args) -> list[str]:
             merge_mode=args.merge_mode, insert_mode=args.insert_mode,
             fused_select=args.fused_select,
             **exec_policy_args(args, T0T1_POOL_CAP))
-        stream_kw, ts = build_streams(args)
+        stream_kw, ts, _ms = build_streams(args)
         eng = Engine(world, own, init_ev, spec, device=args.device,
                      checkpointer=ck, **stream_kw)
         state, rung = None, None
@@ -182,6 +191,165 @@ def run_workload(args) -> list[str]:
     return lines
 
 
+def run_ensemble(args) -> list[str]:
+    import numpy as np
+
+    from repro_torch.core import Engine
+    from repro_torch.scenarios.failures import build_failure_scenario
+
+    built, _info = build_failure_scenario(n_farms=args.farms,
+                                          pool_cap=args.pool_cap)
+    ms = mon.MetricsStream(interval=1_000_000, out=sys.stdout)
+    eng = Engine(*built, metrics_stream=ms, device=args.device)
+    seeds = np.arange(args.seed0, args.seed0 + args.replicas, dtype=np.int32)
+    eng.run_ensemble(seeds)
+    ev_stats = ms.latest["per_replica"]["EVENTS"]
+    fail_stats = ms.latest["per_replica"]["CPU_FAILS"]
+    line = (f"[ensemble] replicas={args.replicas} farms={args.farms} "
+            f"windows={ms.latest['windows']} "
+            f"events/replica min={ev_stats['min']} "
+            f"mean={ev_stats['mean']:.1f} max={ev_stats['max']} "
+            f"fails/replica min={fail_stats['min']} "
+            f"max={fail_stats['max']}")
+    print(line, flush=True)
+    return [json.dumps(ms.latest), line]
+
+
+def run_catalog(args) -> list[str]:
+    import numpy as np
+
+    from repro_torch.scenarios import catalog
+
+    if args.list:
+        lines = []
+        for name in catalog.names():
+            sd = catalog.get(name)
+            lines.append(f"{name:15s} [{sd.driver}] {sd.doc}")
+            defaults = " ".join(f"{k}={v}" for k, v in sd.params)
+            if defaults:
+                lines.append(f"{'':15s} params: {defaults}")
+        print("\n".join(lines), flush=True)
+        return lines
+    if args.name is None:
+        raise SystemExit("simulate run: pass a scenario name (or --list)")
+    overrides = {}
+    for item in args.set:
+        key, sep, value = item.partition("=")
+        if not sep or not key:
+            raise SystemExit(f"--set expects K=V, got {item!r}")
+        overrides[key] = value
+    try:
+        sd = catalog.get(args.name)
+        built, params = sd.resolve(overrides)
+    except catalog.CatalogError as e:
+        raise SystemExit(str(e)) from None
+
+    from repro_torch.device import resolve_device
+    from repro_torch.fleet import FleetPolicy, Orchestrator
+    from repro_torch.fleet.orchestrator import DISTRIBUTED_NOT_PORTED
+
+    if args.devices is not None and args.devices > 1:
+        raise SystemExit(f"--devices {args.devices}: "
+                         f"{DISTRIBUTED_NOT_PORTED}")
+    devices = [resolve_device(args.device)][: args.devices]
+
+    preempt = None
+    if args.preempt_at_window is not None:
+        if args.preempt_survivors is None:
+            raise SystemExit("--preempt-at-window needs --preempt-survivors K")
+        if args.checkpoint_dir is None:
+            raise SystemExit("--preempt-at-window needs --checkpoint-dir DIR "
+                             "(the resume path requires checkpoints)")
+
+        def preempt(window, attempt, *, _w=args.preempt_at_window,
+                    _k=args.preempt_survivors):
+            # one injected shard loss: the first attempt dies once it
+            # reaches window _w, leaving _k survivors; later attempts run out
+            return _k if attempt == 0 and window >= _w else None
+
+    if args.stream_check and args.stream_trace is None:
+        raise SystemExit("--stream-check needs --stream-trace CAP")
+    _stream_kw, ts, ms = build_streams(args)
+    pol = FleetPolicy(
+        driver=sd.driver if sd.driver != "auto" else args.driver,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_keep=args.checkpoint_keep,
+        kill_after=args.kill_after_window,
+        max_windows=args.max_windows,
+        max_retries=args.max_retries,
+        backoff=args.backoff,
+        min_devices=args.min_devices)
+    orch = Orchestrator(pol, trace_stream=ts, metrics_stream=ms,
+                        preempt=preempt,
+                        trace_cap=args.stream_trace or 0,
+                        drain_every=args.drain_every)
+    seeds = None
+    if sd.driver == "ensemble":
+        seeds = np.arange(params["seed0"],
+                          params["seed0"] + params["replicas"],
+                          dtype=np.int32)
+    res = orch.run(built, devices=devices, seeds=seeds)
+
+    st = res.state
+    cn = st.counters.cpu().numpy()  # (A, N), or (R, A, N) for ensembles
+    c = cn.sum(axis=tuple(range(cn.ndim - 1)))
+    lines = [f"[run] {args.name} driver={res.driver} devices={res.devices} "
+             f"attempts={res.attempts} events={int(c[mon.C_EVENTS])} "
+             f"windows={int(st.windows.reshape(-1)[0])} "
+             f"preempt={res.counts['PREEMPT']} "
+             f"resume={res.counts['RESUME']} "
+             f"reshard={res.counts['RESHARD']}"]
+    print(lines[-1], flush=True)
+    if args.stream_check:
+        # the streamed (perhaps preempted and resumed) trace dropped
+        # nothing, outgrew the ring, and equals a run that was never
+        # interrupted, with a trace buffer that holds it all
+        from repro_torch.core import Engine, merged_engine_trace
+        drop = int(c[mon.C_TRACE_DROP])
+        if drop:
+            raise SystemExit(f"stream-check FAILED: C_TRACE_DROP={drop}")
+        tn = st.trace_n.cpu().numpy()
+        if int(tn.max()) <= args.stream_trace:
+            raise SystemExit(
+                f"stream-check vacuous: per-agent trace_n max {int(tn.max())}"
+                f" never exceeded the ring cap {args.stream_trace}")
+        ref_eng = Engine(*built, trace_cap=1 << 16, device=devices[0])
+        if res.driver == "local":
+            ref = ref_eng.run_local(pol.max_windows)
+        else:
+            ref = ref_eng.run_adaptive(pol.max_windows)
+        want = merged_engine_trace(ref.trace.cpu().numpy(),
+                                   ref.trace_n.cpu().numpy())
+        got = ts.merged()
+        if got != want:
+            raise SystemExit(
+                f"stream-check FAILED: streamed trace ({len(got)} rows) != "
+                f"uninterrupted reference ({len(want)} rows)")
+        lines.append(f"[stream-check] OK: {len(got)} rows streamed through a "
+                     f"{args.stream_trace}-row ring across {res.attempts} "
+                     f"attempt(s) == uninterrupted reference, trace_drop=0")
+        print(lines[-1], flush=True)
+    return lines
+
+
+def _stream_args(p) -> None:
+    p.add_argument("--stream-trace", type=int, default=None, metavar="CAP",
+                   help="stream the whole event trace to the host through "
+                        "a CAP-row ring drained at window boundaries "
+                        "(C_TRACE_DROP stays 0 for runs of any length; CAP "
+                        "must be >= the exec width)")
+    p.add_argument("--metrics-interval", type=int, default=None,
+                   metavar="N",
+                   help="print a fleet metrics record as one JSON line "
+                        "every N windows (the registry's counter names; a "
+                        "final record always follows)")
+    p.add_argument("--drain-every", type=int, default=16, metavar="N",
+                   help="trace-ring drain cadence in windows (a drain also "
+                        "fires whenever the next window could overrun the "
+                        "ring; default 16)")
+
+
 def _device_arg(p) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
@@ -222,20 +390,7 @@ def main(argv=None):
     p1.add_argument("--exec-ladder", type=int, nargs="+", default=None,
                     help="explicit width ladder for --adaptive-exec "
                          "(default: policy.default_ladder(pool_cap))")
-    p1.add_argument("--stream-trace", type=int, default=None, metavar="CAP",
-                    help="stream the whole event trace to the host through "
-                         "a CAP-row ring drained at window boundaries "
-                         "(C_TRACE_DROP stays 0 for runs of any length; CAP "
-                         "must be >= the exec width)")
-    p1.add_argument("--metrics-interval", type=int, default=None,
-                    metavar="N",
-                    help="print a fleet metrics record as one JSON line "
-                         "every N windows (the registry's counter names; a "
-                         "final record always follows)")
-    p1.add_argument("--drain-every", type=int, default=16, metavar="N",
-                    help="trace-ring drain cadence in windows (a drain also "
-                         "fires whenever the next window could overrun the "
-                         "ring; default 16)")
+    _stream_args(p1)
     p1.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                     help="directory of engine-state checkpoints (atomic "
                          "step_* subdirectories; enables the other "
@@ -259,8 +414,79 @@ def main(argv=None):
     p2.add_argument("--cell", default="")
     p2.add_argument("--limit", type=int, default=5)
     _device_arg(p2)
+    p4 = sub.add_parser("ensemble")
+    p4.add_argument("--replicas", type=int, default=128,
+                    help="Monte Carlo replicas in one run_ensemble "
+                         "(default 128)")
+    p4.add_argument("--farms", type=int, default=4,
+                    help="failure-scenario farm count (scenario size knob)")
+    p4.add_argument("--pool-cap", type=int, default=256)
+    p4.add_argument("--seed0", type=int, default=0,
+                    help="first replica seed (replica r runs seed0 + r)")
+    _device_arg(p4)
+    p5 = sub.add_parser("run")
+    p5.add_argument("name", nargs="?", default=None,
+                    help="catalog scenario name (see --list)")
+    p5.add_argument("--list", action="store_true",
+                    help="print the scenario catalog (names, drivers, "
+                         "declared parameters) and exit")
+    p5.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="override a declared scenario parameter (repeat "
+                         "for several; values are coerced to the default's "
+                         "type, and undeclared keys are an error)")
+    p5.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="start on the first N devices of --device's kind "
+                         "(default 1; N > 1 needs the distributed drivers, "
+                         "which are not ported yet)")
+    p5.add_argument("--driver",
+                    choices=("auto", "local", "adaptive", "distributed",
+                             "distributed_adaptive"), default="auto",
+                    help="engine driver (auto picks the adaptive driver "
+                         "from the spec's exec policy; ensemble catalog "
+                         "entries force their own driver; the distributed "
+                         "drivers are not ported yet)")
+    p5.add_argument("--max-windows", type=int, default=10_000, metavar="W",
+                    help="per-attempt window budget (default 10000)")
+    p5.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="checkpoint directory (enables the resume path; "
+                         "committed checkpoints found there are resumed: "
+                         "the restart-after-SIGKILL contract)")
+    p5.add_argument("--checkpoint-every", type=int, default=8, metavar="W",
+                    help="save every W windows (default 8; 0 disables)")
+    p5.add_argument("--checkpoint-keep", type=int, default=3, metavar="N",
+                    help="retain the newest N checkpoints (default 3)")
+    p5.add_argument("--kill-after-window", type=int, default=None,
+                    metavar="W",
+                    help="SIGKILL the process right after the first "
+                         "committed checkpoint at window >= W (the crash "
+                         "lane; rerun the same command to resume)")
+    p5.add_argument("--max-retries", type=int, default=3, metavar="N",
+                    help="preemption retry cap before FleetError (default 3)")
+    p5.add_argument("--min-devices", type=int, default=1, metavar="N",
+                    help="device floor: fewer survivors fail instead of "
+                         "resuming (default 1)")
+    p5.add_argument("--backoff", type=float, default=0.0, metavar="S",
+                    help="base retry backoff seconds (exponential, capped; "
+                         "default 0 = immediate)")
+    p5.add_argument("--preempt-at-window", type=int, default=None,
+                    metavar="W",
+                    help="inject one preemption once the first attempt "
+                         "reaches window W (needs --preempt-survivors and "
+                         "--checkpoint-dir)")
+    p5.add_argument("--preempt-survivors", type=int, default=None,
+                    metavar="K",
+                    help="surviving device count after the injected "
+                         "preemption (the fleet shrinks to the first K)")
+    _stream_args(p5)
+    p5.add_argument("--stream-check", action="store_true",
+                    help="after the run, check C_TRACE_DROP == 0, that the "
+                         "trace outgrew the ring, and that the streamed "
+                         "trace equals an uninterrupted run's; exit "
+                         "nonzero on any mismatch")
+    _device_arg(p5)
     args = ap.parse_args(argv)
-    return dict(t0t1=run_t0t1, workload=run_workload)[args.mode](args)
+    return dict(t0t1=run_t0t1, workload=run_workload, ensemble=run_ensemble,
+                run=run_catalog)[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -4,6 +4,6 @@
 counters, and the engine, the conflict mask, the owner-wins sync and the
 oracle pick them up from the generated ``World`` type.
 """
-from repro_torch.scenarios import cache, failures
+from repro_torch.scenarios import cache, catalog, failures
 
-__all__ = ["cache", "failures"]
+__all__ = ["cache", "catalog", "failures"]
