@@ -5,7 +5,7 @@
 
 Needs one CUDA card (fails without one, and fails when run outside a
 checkout of the repository). The CPU reference runs and the sequential
-oracles that phases 4-4g compare against run in four worker processes
+oracles that phases 4-4h compare against run in four worker processes
 started first (``Background``), beside the card's phases, which take their
 results when they need them. Phases, each of which raises on failure:
 
@@ -86,9 +86,11 @@ results when they need them. Phases, each of which raises on failure:
    written to a temporary directory, ``--device cuda`` equal to
    ``--device cpu``;
 5. the normal entry point, ``repro_torch.launch.simulate t0t1`` on the card
-   with 1 and 4 agents, and with 4 agents under ``--fused-select``, under
+   at two of its four bandwidths (8.0 and 2.0 MB a tick) with 1 and 4
+   agents, and with 4 agents under ``--fused-select``, under
    ``--insert-mode ref --merge-mode dense`` and under ``--adaptive-exec``,
-   each equal to ``--device cpu`` and to the stitched run;
+   each equal to ``--device cpu`` (run in the worker processes) and to the
+   stitched run;
 4e. the two models defined outside core, through ``Engine.run_local`` on
    both front ends (8 agents, the registries' 10 and 11 kinds): the
    replica cache (1,024 caches of 8 ways, 8 keys, 10 rounds) and the
@@ -105,8 +107,8 @@ results when they need them. Phases, each of which raises on failure:
    before and read after (each stitched hook once a window, every launch
    at 2,048 rows), its bytes reckoned before the run; every replica done,
    nothing dropped; replica 0 equal to phase 4e's stitched card run (the
-   trace by its written rows), replicas 1, 128 and 255 equal to card
-   ``run_local``s of their seeded states, replica 255's merged trace equal
+   trace by its written rows), replica 255 equal to the card
+   ``run_local`` of its seeded state, and its merged trace equal
    to the oracle of its seeded world in full-row order, the windows
    spread; the fused ensemble of 32 replicas equal to the first 32; a
    4-replica ensemble of a 16-farm, 4-agent cut equal on the card and the
@@ -119,16 +121,36 @@ results when they need them. Phases, each of which raises on failure:
 4f. the host layer on phase 4's stitched ``tiered_grid``: the run streamed
    through a 512-row trace ring (drained every 16 windows), metrics every
    32 windows and a checkpoint every 64, equal to phase 4's card state and
-   merged trace with C_TRACE_DROP 0; a resume from the first checkpoint
-   past the ring into a fresh engine, equal to the streamed run (state,
-   trace, metrics records); a placement at window 128 (the streamed run's
-   checkpoint, restored into a fresh streamed engine) from the counters'
-   performance values (``route_rank`` over the whole pool), its streamed
-   continuation equal to the oracle; then ``simulate t0t1`` with a 32-row
-   ring killed by SIGKILL after the checkpoint at window 40, and resumed
-   on the card and on the CPU to the uninterrupted line. It prints ms a
-   window and events/s streamed and not, host reads a window, ring copies,
-   ms and bytes a checkpoint, ms a restore and ms a migration;
+   merged trace with C_TRACE_DROP 0; a resume from the checkpoint of
+   window 320 (past the ring) into a fresh engine, equal to the streamed
+   run (state, trace, metrics records); a placement at window 320 (the
+   same checkpoint, restored into a fresh streamed engine) from the
+   counters' performance values (``route_rank`` over the whole pool), its
+   streamed continuation equal to the oracle; then ``simulate t0t1`` with
+   a 32-row ring killed by SIGKILL after the checkpoint at window 40, and
+   resumed on the card and on the CPU to the uninterrupted line. It prints
+   ms a window and events/s streamed and not, host reads a window, ring
+   copies, ms and bytes a checkpoint, ms a restore and ms a migration;
+4h. the drivers across devices: a mesh of 4 shards on the card(s) (with
+   one card, all on it: the shards' collectives and kernels at K rows, not
+   multi-card scaling), phase 4's ``tiered_grid`` (8 agents, K = 2) through
+   ``Engine.run_distributed`` stitched at full depth, byte-equal to phase
+   4's card ``run_local`` and its sorted merged trace to the oracle, each
+   hook of the path launched 4 times a window at 2 rows; then at 48
+   windows against ``run_local`` stepped as far: the fused front end on 4
+   shards (against the fused ``run_local``, the trace too), 3 shards (K =
+   3, one pad agent), 8 shards (K = 1), ``run_distributed_adaptive``
+   over (16, 64, 256) with ``run_adaptive``'s rungs,
+   ``apply_placement_distributed`` against ``apply_placement_local``, and a
+   streamed run checkpointed every 16 windows, stopped at window 32 and
+   resumed on 2 shards; the 64-flow grid at 2 agents on 2 shards (K = 1)
+   against the CPU port's run (and unlike ``run_local``: the one-lane flow
+   order); the exchange's host and device ms on a window's send buffers
+   and a 10-window profile of the sharded window (from window 48); then
+   ``simulate distributed --devices 4`` (card against CPU) and ``simulate
+   run t0t1 --devices 2`` preempted to one survivor (``reshard=1``). It
+   prints ms a window, events/s and host reads a window at each D beside
+   ``run_local``'s, and the launches of each kernel;
 4z. the model path at full width and 2 layers: hymba-1.5b (B 2, S 2048) and
    rwkv6-7b (B 2, S 1024) in float32 with TF32 off, one set of random
    weights on the card (the kernels) and on the CPU (the plain versions):
@@ -158,6 +180,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 # Every kernel: its CUDA source and the TPU kernel it replaces (the JSON
@@ -198,6 +221,17 @@ TF32_OPS_PER_S = 495e12
 # centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
 # Tier-2 sites per Tier-1; the builder calls of `simulate t0t1`.
 N_T1, T2_PER_T1 = 13, 4
+# phase 4h's shards over the card(s): 8 agents, K = 2
+DIST_D = 4
+# phase 5's `simulate t0t1` configurations, each at two of the CLI's four
+# bandwidths: 8.0 MB a tick (no stale event) and 2.0 (stale events)
+T0T1_BW = ["--bandwidths", "8.0", "2.0"]
+T0T1_RUNS = {"1": ["--agents", "1", *T0T1_BW],
+             "4": ["--agents", "4", *T0T1_BW],
+             "4 fused": ["--agents", "4", "--fused-select", *T0T1_BW],
+             "4 ref dense": ["--agents", "4", "--insert-mode", "ref",
+                             "--merge-mode", "dense", *T0T1_BW],
+             "4 adaptive": ["--agents", "4", "--adaptive-exec", *T0T1_BW]}
 
 
 def smi() -> str:
@@ -1376,6 +1410,9 @@ def _cpu_built(name: str):
         return failures.build_failure_scenario(**FAIL_KW)[0]
     if name == "cut":
         return failures.build_failure_scenario(**ENS_CUT)[0]
+    if name == "grid64":
+        b, kw = grid_64_flows(comps)
+        return b.build(**kw)
     raise ValueError(name)
 
 
@@ -1425,6 +1462,10 @@ def _cpu_job(job: str):
     elif kind == "cut":
         out = state_to_numpy(Engine(*_cpu_built(kind), trace_cap=ENS_TRACE,
                                     device="cpu").run_ensemble(ENS_CUT_SEEDS))
+    elif kind == "grid64":
+        out = state_to_numpy(Engine(*_cpu_built(kind), trace_cap=1024,
+                                    device="cpu").run_distributed(
+            ["cpu"] * 2))
     elif kind == "cli":
         from repro_torch.launch import simulate
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1438,7 +1479,9 @@ def _cpu_job(job: str):
 CPU_JOBS = ("tiered cpu", "tiered oracle", "workload cpu", "cache cpu",
             "cache oracle", "failures cpu", "failures oracle",
             "ensemble oracle", "cut cpu", "cli ensemble",
-            "cli run ensemble_farm")
+            "cli run ensemble_farm", "grid64 cpu",
+            f"cli distributed --devices {DIST_D}",
+            *(f"cli t0t1 {' '.join(flags)}" for flags in T0T1_RUNS.values()))
 
 
 class Background:
@@ -1702,27 +1745,23 @@ def phase_profile(card: str, fused: bool, start: int = 150,
           f"{len(kern) / n:.1f} device ops/window, device busy "
           f"{busy_ms:.3f} ms/window = {busy_ms / prof_ms:.4f} of the "
           f"profiled wall ({card})", flush=True)
-    for e in sorted(prof.key_averages(), key=lambda e: e.key):
-        if e.key.startswith(("window.", "execute.")):
-            print(f"{tag} {e.key}: host {e.cpu_time_total / 1e3 / n:.3f} "
-                  f"ms/window, {e.count / n:.2f} calls/window", flush=True)
+    for key, (ns, calls) in sorted(host_spans(prof).items()):
+        print(f"{tag} {key}: host {ns / 1e6 / n:.3f} ms/window, "
+              f"{calls / n:.2f} calls/window", flush=True)
 
 
-def phase_entry_point() -> dict:
+def phase_entry_point(bg: Background) -> dict:
+    """Phase 5: ``simulate t0t1`` on the card against ``--device cpu`` (run
+    in ``Background``)."""
     from repro_torch.launch import simulate
     ran, lines = {}, {}
-    runs = {"1": ["--agents", "1"], "4": ["--agents", "4"],
-            "4 fused": ["--agents", "4", "--fused-select"],
-            "4 ref dense": ["--agents", "4", "--insert-mode", "ref",
-                            "--merge-mode", "dense"],
-            "4 adaptive": ["--agents", "4", "--adaptive-exec"]}
-    for name, flags in runs.items():
+    for name, flags in T0T1_RUNS.items():
         reset_launches()
         t0 = time.perf_counter()
         got = simulate.main(["t0t1", *flags, "--device", "cuda"])
         t_card = time.perf_counter() - t0
         ran[name] = launches()
-        want = simulate.main(["t0t1", *flags, "--device", "cpu"])
+        want = bg.get(f"cli t0t1 {' '.join(flags)}")
         if got != want:
             raise AssertionError(f"simulate t0t1 {' '.join(flags)}: cuda "
                                  f"{got} != cpu {want}")
@@ -1773,6 +1812,21 @@ def device_ops(prof) -> list:
     return [e for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
             and not e.is_user_annotation()]
+
+
+def host_spans(prof) -> dict:
+    """Host ns and calls of each engine step's label (``window.*``,
+    ``execute.*``) in a profile, read from the raw trace: the sum of the
+    ranges' durations, what ``key_averages()`` gives as their CPU total,
+    without its parse of every recorded op."""
+    from torch.autograd import DeviceType
+    spans: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name().startswith(
+                ("window.", "execute.")):
+            ns, calls = spans.get(e.name(), (0, 0))
+            spans[e.name()] = (ns + e.duration_ns(), calls + 1)
+    return spans
 
 
 def profile_windows(eng, st, n: int = 10):
@@ -2006,10 +2060,12 @@ def payload_bits(card: str) -> None:
 # The host layer on the stitched tiered Grid of phase 4: a 512-row ring
 # drained every 16 windows (and whenever a window of 256 rows could
 # overrun it), metrics every 32 windows, a checkpoint every 64; a resume
-# from the first checkpoint past the ring; a placement at the checkpoint
-# of window 128. Then the CLI's crash harness on the card, resumed on the
-# card and on the CPU.
-RING, DRAIN_EVERY, METRICS_EVERY, CK_EVERY, MIGRATE_AT = 512, 16, 32, 64, 128
+# from the checkpoint of window 320 (past the ring), and a placement at
+# the same checkpoint, each run on to the end (68 of the 388 windows).
+# Then the CLI's crash harness on the card, resumed on the card and on the
+# CPU.
+RING, DRAIN_EVERY, METRICS_EVERY, CK_EVERY = 512, 16, 32, 64
+RESUME_AT = MIGRATE_AT = 320
 CLI_T0T1 = ["t0t1", "--agents", "4", "--bandwidths", "8.0", "--exec-cap",
             "32", "--stream-trace", "32"]
 
@@ -2108,13 +2164,13 @@ def phase_streams(card: str, built, main_run: dict, ckdir: str,
           f"{max(ck.save_ms):.3f}), {int(np.mean(sizes))} bytes each "
           f"({card})", flush=True)
 
-    # the first checkpoint past the ring, into a fresh engine and streams
-    past = [s for s in ck.all_steps()
-            if int(ck._read_step(s)[1]["state/trace_n"].max()) > RING]
-    if not past:
-        raise AssertionError(f"no checkpoint past the ring in "
-                             f"{ck.all_steps()}")
-    step = past[0]
+    # the checkpoint of RESUME_AT (past the ring), into a fresh engine and
+    # streams
+    step = RESUME_AT
+    if step not in ck.all_steps() or int(ck._read_step(step)[1][
+            "state/trace_n"].max()) <= RING:
+        raise AssertionError(f"window {step} is not a checkpoint past the "
+                             f"ring: {ck.all_steps()}")
     eng2 = streamed_engine(built, dev, ckdir, every=0)
     sync(dev)
     t0 = time.perf_counter()
@@ -2139,10 +2195,10 @@ def phase_streams(card: str, built, main_run: dict, ckdir: str,
 
 def phase_placement(card: str, built, main_run: dict, ckdir: str,
                     dev: str = "cuda") -> dict:
-    """A placement at window 128 of the streamed run (its checkpoint, into
-    a fresh streamed engine) from the counters' performance values, then on
-    to the end: the oracle's trace, the migrate books balanced,
-    ``route_rank`` launched over the whole pool."""
+    """A placement at window MIGRATE_AT of the streamed run (its
+    checkpoint, into a fresh streamed engine) from the counters' performance
+    values, then on to the end: the oracle's trace, the migrate books
+    balanced, ``route_rank`` launched over the whole pool."""
     import torch
     from repro_torch.core import monitoring as mon
     from repro_torch.core import scheduler
@@ -2269,7 +2325,7 @@ def phase_host_layer(card: str, main_run: dict, dev: str = "cuda",
 ENS_REPLICAS = 256
 ENS_FUSED = 32
 ENS_TRACE = 4096
-ENS_SOLO = (1, 128, 255)
+ENS_SOLO = (255,)
 # the card-against-CPU cut: 16 farms over 4 agents, 4 replicas
 ENS_CUT = dict(FAIL_KW, n_farms=16, n_agents=4)
 ENS_CUT_SEEDS = (0, 37, 74, 111)
@@ -2520,6 +2576,424 @@ def phase_ensemble_entry(card: str, bg: Background) -> dict:
           f"{resumed!r} (uninterrupted {whole!r}); seconds {secs} ({card})",
           flush=True)
     return took
+
+
+# --------------------------------------------------------------- phase 4h
+# The drivers across devices. A mesh is a list of devices, one a shard;
+# with one card every shard is on it (as the reference's forced host
+# devices share one CPU), so these runs show the shards' collectives and
+# kernels at K rows, not multi-card scaling. Phase 4's tiered Grid at 8
+# agents over 4 shards (K = 2), stitched, at full depth; then, at a cut
+# depth of DIST_WINDOWS windows against run_local stepped as far: the fused
+# front end on 4 shards, 3 shards (K = 3, one pad agent), 8 shards (K = 1),
+# the adaptive driver,
+# a placement, and a streamed, checkpointed run stopped at window
+# DIST_STOP and resumed on 2 shards; the 64-flow grid at one agent a shard
+# against the CPU; then the CLI.
+DIST_WINDOWS = 48
+DIST_STOP = 32
+DIST_CK = 16
+DIST_LADDER = (16, 64, 256)
+DES_KERNELS = ("select_events", "group_by_kind", "trace_rank", "route_rank",
+               "fused_select", "ring_slots")
+
+
+def grid_64_flows(components):
+    """tests/test_torch_network_64.py's 64-flow WAN region through a
+    ``components`` module's builder, and its build kwargs."""
+    c = components
+    b = c.ScenarioBuilder(max_cpu=4, queue_cap=64, max_link=4, max_flow=64)
+    b.add_regional_center(n_cpu=4, cpu_power=10.0, disk=500.0, tape=5000.0,
+                          tape_rate=5.0)
+    t1 = b.add_regional_center(n_cpu=4, cpu_power=8.0, disk=3000.0,
+                               tape=30000.0, tape_rate=5.0)
+    wan = b.add_net_region(link_bws=[0.5, 0.7, 3.0], link_lats=[5, 5, 5])
+    routes = [dict(l0=0), dict(l0=0, l1=2), dict(l0=1, l1=2), dict(l0=1),
+              dict(l0=2)]
+    for route, count in zip(routes, (13, 13, 13, 13, 12)):
+        b.add_generator(
+            target_lp=wan, kind=c.FLOW_START,
+            payload=c.FLOW_START.pack(size=40.0, **route,
+                                      notify_lp=t1["farm"],
+                                      notify_kind=c.JOB_SUBMIT.id,
+                                      notify2_lp=t1["storage"],
+                                      notify2_kind=c.DATA_WRITE.id),
+            interval=1, count=count, start=0)
+    return b, dict(n_agents=2, lookahead=2, t_end=70, pool_cap=512,
+                   work_per_mb=2.0)
+
+
+class kernel_rows:
+    """Within the block, the ops wrappers of the window's kernels record
+    (kernel, rows of the call) in ``seen``; an engine built inside binds
+    them."""
+
+    def __init__(self, seen: set):
+        from repro_torch.kernels import ops
+        self.ops, self.seen = ops, seen
+        self.old = {n: getattr(ops, n) for n in DES_KERNELS}
+
+    def __enter__(self):
+        for n, fn in self.old.items():
+            setattr(self.ops, n, rows_seen(n, fn, self.seen))
+
+    def __exit__(self, *exc):
+        for n, fn in self.old.items():
+            setattr(self.ops, n, fn)
+
+
+def run_sharded(label: str, built, mesh, dev: str, card: str,
+                max_windows: int = 10_000, local: dict | None = None):
+    """``run_distributed`` of ``built`` over ``mesh`` with the launch counts
+    set to 0 before and read after, and the rows of every kernel call;
+    each of the front end's kernels must launch once a window a shard at K
+    rows. Returns (state, numbers)."""
+    from repro_torch.core import Engine
+    from repro_torch.core import monitoring as mon
+    spec = built[3]
+    D = len(mesh)
+    K = -(-spec.n_agents // D)
+    seen: set = set()
+    with kernel_rows(seen):
+        eng = Engine(*built, trace_cap=65536, device=dev)
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    with kernel_rows(seen):
+        st = eng.run_distributed(mesh, max_windows=max_windows)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    ran = launches()
+    windows = int(st.windows[0])
+    events = int(st.counters[:, mon.C_EVENTS].sum())
+    hooks = FUSED_HOOKS if spec.fused_select else STITCHED_HOOKS
+    if dev == "cuda":
+        want = {k: D * windows for k in hooks}
+        if {k: ran[k] for k in hooks} != want:
+            raise AssertionError(f"{label}: launches {ran}, want {want}")
+        off = [k for k in DES_KERNELS if k not in hooks and ran[k]]
+        if off:
+            raise AssertionError(f"{label}: {off} launched")
+    if seen != {(k, K) for k in hooks}:
+        raise AssertionError(f"{label}: (kernel, rows) calls {sorted(seen)}, "
+                             f"want every hook at {K} rows")
+    no_drop(label, st)
+    ms = wall / windows * 1e3
+    side = ""
+    if local is not None:
+        side = (f"; run_local: {local['wall'] / local['windows'] * 1e3:.3f} "
+                f"ms/window, {local['events'] / local['wall']:.1f} events/s, "
+                f"{local['host_reads'] / local['windows']:.4f} host reads/"
+                f"window")
+    print(f"[distributed] {label}: {D} shards x K={K} ({D * K - spec.n_agents}"
+          f" pad), {windows} windows, {events} events, wall {wall:.3f} s, "
+          f"{ms:.3f} ms/window, {events / wall:.1f} events/s, "
+          f"{eng.host_reads / windows:.4f} host reads/window, fallback "
+          f"steps/window {eng.fallback_steps / windows:.2f}{side}; launches "
+          f"{ran} ({D} a window each at {K} rows) ({card})", flush=True)
+    return st, dict(windows=windows, events=events, wall=wall,
+                    host_reads=eng.host_reads, launches=ran)
+
+
+def exchange_cost(built, mesh, dev: str, card: str, n: int = 20) -> dict:
+    """The exchange alone on the send buffers of the first window that
+    routes a valid row (captured from ``ShardAxes.exchange``): its host ms
+    a call (the Python call, unsynchronized) and device ms a call (its ops'
+    device time under torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Engine
+    from repro_torch.core import shards as sh
+    got = []
+    real = sh.ShardAxes.exchange
+
+    def capture(axes, cols, rcap):
+        if not got and any(bool(c[-1].any()) for c in cols):
+            got.append((axes, cols, rcap))
+        return real(axes, cols, rcap)
+
+    sh.ShardAxes.exchange = capture
+    try:
+        Engine(*built, trace_cap=65536, device=dev).run_distributed(
+            mesh, max_windows=16)
+    finally:
+        sh.ShardAxes.exchange = real
+    if not got:
+        raise AssertionError("no exchange carried a valid row in 16 windows")
+    axes, cols, rcap = got[0]
+    nbytes = sum(c.numel() * c.element_size() for sc in cols for c in sc)
+    real(axes, cols, rcap)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        real(axes, cols, rcap)
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    sync(dev)
+    dev_ms = None
+    if dev == "cuda":
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                real(axes, cols, rcap)
+            torch.cuda.synchronize()
+        ops_ = device_ops(prof)
+        dev_ms = sum(e.duration_ns() for e in ops_) / 1e6 / n
+        print(f"[distributed] exchange over {axes.n_shards} shards x "
+              f"K={axes.n_lanes}: {nbytes} bytes of send buffers, host "
+              f"{host_ms:.4f} ms a call, device {dev_ms:.4f} ms a call in "
+              f"{len(ops_) / n:.1f} device ops ({card})", flush=True)
+    return dict(host_ms=host_ms, device_ms=dev_ms, bytes=nbytes)
+
+
+def profile_sharded(built, mesh, st, start: int, card: str,
+                    n: int = 10) -> None:
+    """``n`` windows of ``run_distributed`` from ``st`` (a ``run_local``
+    state at window ``start``, which the sharded run's equals) under
+    torch.profiler: ms a window, device ops, busy share and the host ms of
+    each labelled step (``window.exchange`` the exchange's own)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Engine
+    eng = Engine(*built, trace_cap=65536, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_distributed(mesh, max_windows=start + n, state=st)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+    kern = device_ops(prof)
+    if not kern:
+        raise AssertionError("the sharded profile holds no device op")
+    busy = sum(e.duration_ns() for e in kern) / 1e6 / n
+    tag = f"[profile {len(mesh)} shards]"
+    print(f"{tag} windows {start}..{start + n}: {ms:.3f} ms/window "
+          f"profiled; {len(kern) / n:.1f} device ops/window, device busy "
+          f"{busy:.3f} ms/window = {busy / ms:.4f} of the wall ({card})",
+          flush=True)
+    for key, (ns, calls) in sorted(host_spans(prof).items()):
+        print(f"{tag} {key}: host {ns / 1e6 / n:.3f} ms/window, "
+              f"{calls / n:.2f} calls/window", flush=True)
+
+
+def phase_distributed(card: str, main_run: dict, bg: Background,
+                      dev: str = "cuda", grid: dict | None = None) -> dict:
+    """Phase 4h: the drivers across devices (see above)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import components as comps
+    from repro_torch.core import Engine, merged_engine_trace
+    from repro_torch.core import monitoring as mon
+    from repro_torch.core.policy import ExecPolicy
+    from repro_torch.launch import simulate
+    from repro_torch.launch.mesh import make_sim_mesh
+
+    t_phase = time.perf_counter()
+    out = {}
+    mesh = make_sim_mesh(DIST_D, dev)
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+    print(f"[distributed] mesh {[str(d) for d in mesh]}: {DIST_D} shards on "
+          f"{len(set(mesh))} distinct device(s), {cards} card(s) present; "
+          f"shards on one card queue their kernels on it, so no number here "
+          f"is multi-card scaling ({card})", flush=True)
+
+    def tiered(**kw):
+        return tiered_grid(comps, **(grid or {})).build(**tiered_build_kw(),
+                                                       **kw)
+
+    laps = [time.perf_counter()]
+
+    def lap(step: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"[time] 4h {step}: {laps[-1] - laps[-2]:.1f} s", flush=True)
+
+    def cut_local(built):
+        """``run_local`` of ``built`` stepped DIST_WINDOWS windows, and its
+        numbers for the sharded runs' lines."""
+        eng = Engine(*built, trace_cap=65536, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        st = eng.run_local(max_windows=DIST_WINDOWS)
+        sync(dev)
+        return eng, st, dict(wall=time.perf_counter() - t0,
+                             windows=DIST_WINDOWS, host_reads=eng.host_reads,
+                             events=int(st.counters[:, mon.C_EVENTS].sum()))
+
+    # stitched at full depth on 4 shards: byte-equal to phase 4's card
+    # run_local and the oracle
+    label = "tiered_grid stitched"
+    st, out["stitched"] = run_sharded(label, tiered(), mesh, dev, card,
+                                      local=main_run)
+    state_equal(st, main_run["state"])
+    if sorted(merged_engine_trace(st.trace, st.trace_n)) != \
+            main_run["oracle"]:
+        raise AssertionError(f"{label}: merged trace != the oracle")
+    print(f"[distributed] {label} on {DIST_D} shards == phase 4's card "
+          f"run_local (trace, counters, world, pool, ring cursors); merged "
+          f"trace == the oracle", flush=True)
+    lap("stitched, 4 shards, full depth")
+
+    # the rest at a cut depth against run_local stepped as far: the fused
+    # front end on 4 shards, then 3 shards (a pad agent) and 8 (K = 1)
+    label = f"tiered_grid fused, windows 0..{DIST_WINDOWS}"
+    fused = tiered(fused_select=True)
+    _, f_ref, f_local = cut_local(fused)
+    st, out["fused"] = run_sharded(label, fused, mesh, dev, card,
+                                   max_windows=DIST_WINDOWS, local=f_local)
+    state_equal(st, f_ref)
+    if merged_engine_trace(st.trace, st.trace_n) != merged_engine_trace(
+            f_ref.trace, f_ref.trace_n):
+        raise AssertionError(f"{label}: merged trace != run_local's")
+    print(f"[distributed] {label} on {DIST_D} shards == fused run_local at "
+          f"window {DIST_WINDOWS} (trace, counters, world, pool, ring "
+          f"cursors)", flush=True)
+    built = tiered()
+    eng, ref, local = cut_local(built)
+    for D in (3, 8):
+        st, out[f"D{D}"] = run_sharded(
+            f"tiered_grid stitched, windows 0..{DIST_WINDOWS}", built,
+            make_sim_mesh(D, dev), dev, card, max_windows=DIST_WINDOWS,
+            local=local)
+        state_equal(st, ref)
+        print(f"[distributed] {D} shards == run_local at window "
+              f"{DIST_WINDOWS}", flush=True)
+    lap(f"fused 4 shards, 3 and 8 shards, {DIST_WINDOWS} windows")
+
+    # one agent a shard on the 64-flow grid: the one-lane flow order
+    b64, kw64 = grid_64_flows(comps)
+    g64 = b64.build(**kw64)
+    st = Engine(*g64, trace_cap=1024, device=dev).run_distributed(
+        make_sim_mesh(2, dev))
+    state_equal(st, bg.get("grid64 cpu"))
+    loc = Engine(*g64, trace_cap=1024, device=dev).run_local()
+    n_diff = int((st.world.flow_rate.view(torch.int32)
+                  != loc.world.flow_rate.view(torch.int32)).sum())
+    if n_diff == 0:
+        raise AssertionError("grid_64_flows: 2 shards of one agent equal "
+                             "run_local at 2 agents; the one-lane order "
+                             "did not show")
+    print(f"[distributed] grid_64_flows, 2 agents on 2 shards (K = 1): == the "
+          f"CPU port's run_distributed; {n_diff} flow_rate elements differ "
+          f"from run_local at 2 agents (one lane a shard sums in the "
+          f"one-lane order, as the reference's run_distributed does)",
+          flush=True)
+    lap("grid_64_flows")
+
+    # the adaptive driver's rungs in lockstep with run_adaptive
+    pol = ExecPolicy(ladder=DIST_LADDER)
+    e1 = Engine(*built, trace_cap=65536, device=dev)
+    a_ref = e1.run_adaptive(max_windows=DIST_WINDOWS, policy=pol)
+    e2 = Engine(*built, trace_cap=65536, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    a_got = e2.run_distributed_adaptive(mesh, max_windows=DIST_WINDOWS,
+                                        policy=pol)
+    sync(dev)
+    t_ada = time.perf_counter() - t0
+    if e2.adaptive_rungs != e1.adaptive_rungs:
+        raise AssertionError(f"adaptive rungs {e2.adaptive_rungs} != "
+                             f"run_adaptive's {e1.adaptive_rungs}")
+    state_equal(a_got, a_ref)
+    print(f"[distributed] run_distributed_adaptive over {DIST_LADDER} on "
+          f"{DIST_D} shards, {len(e2.adaptive_rungs)} windows: rungs "
+          f"{sorted(set(e2.adaptive_rungs))} == run_adaptive's, state == "
+          f"run_adaptive's ({t_ada / len(e2.adaptive_rungs) * 1e3:.3f} "
+          f"ms/window, {e2.host_reads / len(e2.adaptive_rungs):.4f} host "
+          f"reads/window) ({card})", flush=True)
+    lap("adaptive")
+
+    # a placement in mid-run, across the shards and on one device
+    la = ref.world.lp_agent[0].cpu().numpy()
+    new_la = ((la + 1) % built[3].n_agents).astype(np.int32)
+    sync(dev)
+    t0 = time.perf_counter()
+    m_loc = eng.apply_placement_local(ref, new_la)
+    sync(dev)
+    t1 = time.perf_counter()
+    m_dist = eng.apply_placement_distributed(ref, new_la, mesh)
+    sync(dev)
+    t2 = time.perf_counter()
+    state_equal(m_dist, m_loc)
+    moved = int(m_dist.counters[:, mon.C_MIGRATE_OUT].sum())
+    if moved == 0 or moved != int(m_dist.counters[:, mon.C_MIGRATE_IN].sum()):
+        raise AssertionError(f"placement: out/in unbalanced or empty")
+    print(f"[distributed] apply_placement_distributed at window "
+          f"{DIST_WINDOWS} on {DIST_D} shards == apply_placement_local: "
+          f"{moved} events out and in; {(t2 - t1) * 1e3:.3f} ms (local "
+          f"{(t1 - t0) * 1e3:.3f} ms) ({card})", flush=True)
+
+    # streamed and checkpointed, stopped, resumed on another shard count
+    class Stop(RuntimeError):
+        pass
+
+    def stop(window, _st):
+        if window >= DIST_STOP:
+            raise Stop
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        e1 = streamed_engine(built, dev, ckdir, every=DIST_CK,
+                             window_hook=stop)
+        try:
+            e1.run_distributed(mesh)
+        except Stop:
+            pass
+        e2 = streamed_engine(built, dev, ckdir, every=DIST_CK)
+        rec = e2.restore()
+        if rec.step != DIST_STOP:
+            raise AssertionError(f"resume from window {rec.step}")
+        got = e2.run_distributed(make_sim_mesh(2, dev),
+                                 max_windows=DIST_WINDOWS - DIST_STOP,
+                                 state=rec.state)
+    state_equal(got, ref, parts=("world", "pool", "counters", "t_now",
+                                 "windows", "trace_n"))
+    if e2.trace_stream.merged() != merged_engine_trace(ref.trace,
+                                                       ref.trace_n):
+        raise AssertionError("resumed streamed trace != run_local's")
+    no_drop("resumed", got)
+    print(f"[distributed] streamed through a {RING}-row ring on {DIST_D} "
+          f"shards, checkpointed every {DIST_CK}, stopped at window "
+          f"{DIST_STOP}, resumed on 2 shards to window {DIST_WINDOWS}: == "
+          f"run_local (world, pool, counters) and its merged trace, "
+          f"C_TRACE_DROP 0; {len(e1.checkpointer.save_ms)} saves, "
+          f"{np.mean(e1.checkpointer.save_ms):.1f} ms each ({card})",
+          flush=True)
+    lap("placement, stream and resume")
+
+    # the exchange's cost, then a profile of the sharded window from the
+    # cut run_local's state
+    out["exchange"] = exchange_cost(built, mesh, dev, card)
+    if dev == "cuda":
+        profile_sharded(built, mesh, ref, DIST_WINDOWS, card)
+    lap("exchange cost and profile")
+
+    # the entry points
+    t0 = time.perf_counter()
+    line = simulate.main(["distributed", "--devices", str(DIST_D),
+                          "--device", dev])
+    t_cli = time.perf_counter() - t0
+    lap("simulate distributed")
+    want = bg.get(f"cli distributed --devices {DIST_D}")
+    if line != want:
+        raise AssertionError(f"simulate distributed: {line} != cpu {want}")
+    with tempfile.TemporaryDirectory() as ckdir:
+        run = simulate.main([*CLI_RUN_T0T1, "--devices", "2", "--device",
+                             dev, "--checkpoint-dir", ckdir,
+                             "--checkpoint-every", "4",
+                             "--preempt-at-window", "12",
+                             "--preempt-survivors", "1", "--stream-trace",
+                             "32", "--stream-check"])
+    if "reshard=1" not in run[0] or not run[1].startswith(
+            "[stream-check] OK"):
+        raise AssertionError(f"simulate run --devices 2 preempted: {run}")
+    print(f"[distributed] simulate distributed --devices {DIST_D}: {dev} == "
+          f"cpu {line[0]!r} ({t_cli:.1f} s); simulate run t0t1 --devices 2 "
+          f"preempted at window 12 to 1 survivor: {run[0]!r}, "
+          f"{run[1]!r} ({card})", flush=True)
+    lap("simulate run --devices 2")
+    print(f"[distributed] phase 4h: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
 
 
 # --------------------------------------------------------------- phase 3z
@@ -3043,10 +3517,20 @@ def main() -> int:
         bg.close()
 
 
+def timed(label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, printing its seconds and the script's so far."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    now = time.perf_counter()
+    print(f"[time] {label}: {now - t0:.1f} s ({now - T_START:.1f} s since "
+          f"the start)", flush=True)
+    return out
+
+
 def run_phases(card: str, es, ref, bg: Background) -> int:
     import torch
     from repro_torch.kernels import build
-    build.build_all()
+    timed("phase 2 build", build.build_all)
     for name, info in build.build_info.items():
         print(f"[build] {name}: {info['seconds']:.2f} s -> {info['path']}",
               flush=True)
@@ -3067,24 +3551,26 @@ def run_phases(card: str, es, ref, bg: Background) -> int:
     print(f"[build] maxmin_warp_kernel: "
           f"{build.library('bandwidth_share').maxmin_warp_blocks_per_sm()} "
           f"CTAs per SM (8 lanes each)", flush=True)
-    timings = phase_kernels(es, ref)
-    timings["maxmin_rates"] = phase_maxmin(torch.Generator().manual_seed(1))
+    timings = timed("phase 3 kernels", phase_kernels, es, ref)
+    timings["maxmin_rates"] = timed("phase 3 maxmin", phase_maxmin,
+                                    torch.Generator().manual_seed(1))
     # before phase 4's profiles: after a long profiled run, a short one
     # records no device op (device_ms needs them)
-    timings.update(phase_zoo_kernels())
-    main_run = phase_main_path(card, bg)
-    fused_run = phase_fused_path(card, main_run)
-    phase_workload(card, bg)
-    phase_profile(card, fused=False)
-    phase_profile(card, fused=True)
-    phase_entry_point()
-    scen = phase_scenarios(card, bg)
-    phase_ensemble(card, *scen.pop("failures_run"),
-                   scen["failures"]["stitched"], bg)
-    phase_host_layer(card, main_run)
-    phase_model_path(card)
-    served = phase_serve(card)
-    phase_serve_entry()
+    timings.update(timed("phase 3z", phase_zoo_kernels))
+    main_run = timed("phase 4", phase_main_path, card, bg)
+    fused_run = timed("phase 4b", phase_fused_path, card, main_run)
+    timed("phase 4c", phase_workload, card, bg)
+    timed("profile stitched", phase_profile, card, fused=False)
+    timed("profile fused", phase_profile, card, fused=True)
+    timed("phase 5", phase_entry_point, bg)
+    scen = timed("phase 4e", phase_scenarios, card, bg)
+    timed("phase 4g", phase_ensemble, card, *scen.pop("failures_run"),
+          scen["failures"]["stitched"], bg)
+    timed("phase 4f", phase_host_layer, card, main_run)
+    timed("phase 4h", phase_distributed, card, main_run, bg)
+    timed("phase 4z", phase_model_path, card)
+    served = timed("phase 4s", phase_serve, card)
+    timed("phase 5z", phase_serve_entry)
 
     # launches on each kernel's own path: the stitched run for the four
     # stitched hooks and maxmin_rates, the fused run for fused_select and

@@ -1,7 +1,8 @@
 """The simulation engine: conservative-window superstep + host-stepped run
 loop (counterpart of ``repro.core.engine``).
 
-Per window, over all A agents at once (every tensor leads with A):
+Per window, over the A agents of a shard at once (every tensor leads with
+the shard's rows):
 
   1-2. GVT: per-context local min pending time -> min over agents; the
        safe mask is every event strictly below the horizon.
@@ -13,9 +14,20 @@ Per window, over all A agents at once (every tensor leads with A):
        sequential fallback for conflicted rows, the trace append
        (``trace_fn``, the ``trace_rank`` kernel) and the emit compaction.
   5-6. Route the emits by destination agent (``route_fn``, the
-       ``route_rank`` kernel) through an (A_src, A_dst, route_cap)
-       transpose, then insert them into the free ring.
+       ``route_rank`` kernel) into (A_dst, route_cap) send blocks, exchange
+       them (every agent receives its blocks in ascending source order),
+       then insert them into the free ring.
   7.   Owner-wins sync of the replicated world and the pool gauges.
+
+The window is written once, for one shard (``_window``, a generator):
+the GVT's min, the host read, the exchange and the owner-wins sum are the
+points where it needs the other shards, and ``core/shards.py`` resolves
+them over all shards in lockstep. ``run_local``, ``run_adaptive`` and
+``run_ensemble`` run one shard holding every row, where those points are
+reductions over the leading dimension; ``run_distributed`` and
+``run_distributed_adaptive`` run ``K = ceil(A / D)`` agents on each of the
+D devices of a mesh (the state padded with inert agents), each shard
+launching its own kernels at K rows.
 
 ``spec.fused_select`` replaces the select, gather, conflict mask, grouping
 and release ranks of steps 3-4 with one ``fused_fn`` call (the
@@ -34,13 +46,15 @@ replica's A rows (``Engine._replicas``).
 The reference runs this inside a jitted ``while_loop``; here the host steps
 one window at a time and syncs twice per window: it reads ``done`` (with
 ``trace_n`` when a trace stream is attached), and it reads one small tensor
-holding the conflict-fallback counts (the sequential fold's trip count), the
-kinds among the fallback rows and which kinds the clean rows hold. Streams
+of every shard, holding the conflict-fallback counts (the sequential fold's
+trip count), the kinds among the fallback rows and which kinds the clean
+rows hold. Streams
 read more only on the windows that use it: the trace ring on drain windows,
 the counters on metrics windows. ``Engine.host_reads`` counts the reads. The reference evaluates every handler on every lane; the
 port skips the handlers of kinds that no lane holds, which no lane's result
 depends on. Steps are labelled for ``torch.profiler`` (``window.*``,
-``execute.*``).
+``execute.*``; the points between shards ``window.gvt``, ``.read``,
+``.exchange`` and ``.owner_sum``).
 """
 from __future__ import annotations
 
@@ -54,6 +68,7 @@ from torch.profiler import record_function
 from repro_torch.core import events as ev
 from repro_torch.core import monitoring as mon
 from repro_torch.core import policy as pol
+from repro_torch.core import shards as sh
 from repro_torch.core import sync
 from repro_torch.core import tensor_util as tu
 from repro_torch.core.handlers import (apply_handler, apply_handler_batch,
@@ -143,7 +158,8 @@ def fused_select_xla(time_key, seq, safe, time, kind, src, dst, ctx, payload,
 
 
 class Engine:
-    """Binds a built scenario to the superstep program on one device.
+    """Binds a built scenario to the superstep program on one device or on
+    the shards of a mesh (``run_distributed``).
 
     ``device=None`` means the CUDA card (a missing card raises); pass
     ``device="cpu"`` to run on the CPU. The hooks default to
@@ -160,7 +176,8 @@ class Engine:
     of its interval windows. A ``checkpointer`` (``checkpoint.
     SimCheckpointer``) saves the state every ``checkpointer.every`` windows,
     then ``window_hook(window, state)`` runs, after every window of
-    ``run_local`` and ``run_adaptive``. ``step_local`` fires none of them.
+    ``run_local``, ``run_adaptive`` and their twins across devices (with
+    the unpadded state). ``step_local`` fires none of them.
     """
 
     def __init__(self, world, own, init_events: ev.EventBatch,
@@ -214,14 +231,17 @@ class Engine:
         self.select_fn = select_fn or ops.select_events
         self.group_fn = group_fn or functools.partial(
             ops.group_by_kind, n_kinds=self.registry.n_kinds)
-        self.route_fn = route_fn or functools.partial(
-            ops.route_rank, n_buckets=spec.n_agents + 1)
+        # None: ``ops.route_rank`` over the run's agent ids and the
+        # sentinel, ``size + 1`` buckets (the padded D * K + 1 across shards)
+        self.route_fn = route_fn
         self.trace_fn = trace_fn or ops.trace_rank
         self.table = self.registry.make_handlers(spec.lookahead,
                                                  spec.work_per_mb)
         self._n_res = self.registry.max_rows(world)
         self._kind_table = torch.tensor(self.registry.kind_table, dtype=I32,
                                         device=self.device)
+        # (own, kind table) on each shard's device
+        self._consts = {self.device: (self.own, self._kind_table)}
         # fused_fn(time_key, seq, safe, time, kind, src, dst, ctx, payload,
         # valid, table_id, res, free_tail, exec_cap) -> (FusedSelect, the
         # clean lanes' per-kind counts), used only under spec.fused_select;
@@ -273,21 +293,44 @@ class Engine:
         self.host_reads += 1
         return t.cpu().numpy()
 
+    def _consts_on(self, dev) -> tuple:
+        """(own, kind table) on a shard's device, copied there once."""
+        c = self._consts.get(dev)
+        if c is None:
+            c = self._consts[dev] = (_to(self.own, dev),
+                                     self._kind_table.to(dev))
+        return c
+
     def _superstep(self, st: EngineState, exec_cap: int | None = None,
                    ring: bool = False) -> EngineState:
-        """One conservative window for every agent. ``exec_cap`` overrides
-        the spec's static width (the adaptive driver's rung); ``ring``
-        writes the trace as the streaming ring (the drain runs before, on
-        the host)."""
+        """One conservative window for every agent of a one-device state."""
+        return self._step([st], self._local_axes(st), exec_cap, ring)[0]
+
+    def _step(self, shards: list, axes: sh.ShardAxes,
+              exec_cap: int | None = None, ring: bool = False) -> list:
+        """One window of every shard, in lockstep."""
+        return sh.lockstep(axes, [
+            self._window(st, axes, s, exec_cap, ring)
+            for s, st in enumerate(shards)], self._read)
+
+    def _window(self, st: EngineState, axes: sh.ShardAxes, s: int,
+                exec_cap: int | None = None, ring: bool = False):
+        """One conservative window of shard ``s``'s rows: a generator that
+        yields at the GVT, the host read, the exchange and the owner-wins
+        sum (``core/shards.py``) and returns the shard's new state.
+        ``exec_cap`` overrides the spec's static width (the adaptive
+        drivers' rung); ``ring`` writes the trace as the streaming ring (the
+        drain runs before, on the host)."""
         spec = self.spec
         world, pool, counters = st.world, st.pool, st.counters
         xcap = self._xcap(spec.exec_cap if exec_cap is None else exec_cap)
+        own, kind_table = self._consts_on(pool.time.device)
 
         # 1-2. GVT + safe mask; 3. order (time, seq) + compact to the
         # earliest exec_cap slots
+        lmin = sync.local_min_per_ctx(pool, spec.n_ctx)
+        gvt = yield sh.Min(lmin)
         with record_function("window.select"):
-            lmin = sync.local_min_per_ctx(pool, spec.n_ctx)
-            gvt = sync.global_min(lmin, self._replicas)
             horizon = sync.horizons(gvt, spec.lookahead, spec.t_end)
             done = sync.all_done(gvt, spec.t_end)
             safe = sync.safe_mask(pool, horizon)
@@ -295,7 +338,7 @@ class Engine:
             if spec.fused_select:
                 # select + gather + conflict + group + release ranks in one
                 # call; the conflict key columns are gathered pool-wide
-                tbl_pool = self._kind_table[pool.kind.clamp(
+                tbl_pool = kind_table[pool.kind.clamp(
                     0, self.registry.n_kinds - 1).long()]
                 res_pool = tu.gather_rows(world.lp_res,
                                           pool.dst.clamp(0, spec.n_lp - 1))
@@ -315,9 +358,9 @@ class Engine:
         # 4. execute
         execute = (self._execute_batched if spec.batched_dispatch
                    else self._execute_scan)
-        world, counters, emits, trace, trace_n = execute(
+        world, counters, emits, trace, trace_n = yield from execute(
             world, counters, cand, exec_safe, st.trace, st.trace_n,
-            ring=ring, pre=pre)
+            kind_table, ring=ring, pre=pre)
         if ring:
             # ring overwrite accounting: rows written this window on top of
             # un-drained ones (0 while the drain keeps the ring ahead)
@@ -348,14 +391,17 @@ class Engine:
                                                         3, world.lp_state))
 
         # 5-6. route + insert
-        with record_function("window.route_insert"):
-            pool, counters = self._route_and_insert(world, pool, counters,
-                                                    emits)
+        pool, counters = yield from self._route_and_insert(
+            world, pool, counters, emits, axes, s)
 
-        # 7. replicated-state sync, then the pool gauges
-        with record_function("window.sync"):
-            world = self.registry.sync_world(world, self.own,
-                                             self._replicas)
+        # 7. replicated-state sync over the fleet, then the pool gauges
+        if axes.size > 1:
+            with record_function("window.sync"):
+                plan, parts = self.registry.owner_parts(world, own,
+                                                        axes.me(s))
+            totals = yield sh.Sum(parts)
+            world = self.registry.owner_merge(world, plan, totals)
+        with record_function("window.gauges"):
             counters = mon.gauge(counters, mon.C_POOL_OCC, ev.occupancy(pool))
             counters = mon.gauge(counters, mon.C_POOL_FREE, pool.free_count)
 
@@ -376,13 +422,15 @@ class Engine:
 
     # ------------------------------------------------- step 4: sequential fold
     def _execute_scan(self, world, counters, cand: ev.EventBatch,
-                      exec_safe, trace, trace_n, ring=False, pre=None):
+                      exec_safe, trace, trace_n, kind_table, ring=False,
+                      pre=None):
         """``batched_dispatch=False``: the rows in (time, seq) order, one at a
         time per agent. Safe rows form a prefix of the selection, so the fold
         stops after the longest agent's safe prefix (one host read); the
         remaining steps of the reference's scan change nothing. ``pre`` (the
-        fused front end's conflict mask and grouping) is not needed here."""
-        del pre
+        fused front end's conflict mask and grouping) is not needed here. A
+        generator, as ``_window``."""
+        del pre, kind_table
         A, m = cand.time.shape
         dev = cand.time.device
         ecap = self.spec.emit_cap
@@ -392,8 +440,8 @@ class Engine:
         a = torch.arange(A, device=dev)
         # one host read: each agent's safe-prefix length and the row kinds
         n_safe = tu.isum(exec_safe, 1)
-        host = self._read(torch.cat([n_safe, cand.kind.clamp(
-            0, self.registry.n_kinds - 1).reshape(-1)])).tolist()
+        host = (yield sh.Read(torch.cat([n_safe, cand.kind.clamp(
+            0, self.registry.n_kinds - 1).reshape(-1)]))).tolist()
         n_safe_h, kinds_h = host[:A], host[A:]
         for i in range(max(n_safe_h)):
             is_safe = exec_safe[:, i]
@@ -427,19 +475,21 @@ class Engine:
 
     # -------------------------------------------- step 4: vectorized dispatch
     def _execute_batched(self, world, counters, cand: ev.EventBatch,
-                         exec_safe, trace, trace_n, ring=False, pre=None):
+                         exec_safe, trace, trace_n, kind_table, ring=False,
+                         pre=None):
         """Grouped batched dispatch: conflict-free rows in one handler
         evaluation, conflicted rows through a sequential fold compacted to
         them. Emits land in a per-row (m, MAX_EMIT) matrix and the trace is
         written in window order, so the result equals the sequential fold.
-        ``pre = (clean, order, counts)`` comes from the fused front end."""
+        ``pre = (clean, order, counts)`` comes from the fused front end. A
+        generator, as ``_window``."""
         spec = self.spec
         A, xcap = cand.time.shape
         dev = cand.time.device
         nk = self.registry.n_kinds
 
         if pre is None:
-            table_id = self._kind_table[cand.kind.clamp(0, nk - 1).long()]
+            table_id = kind_table[cand.kind.clamp(0, nk - 1).long()]
             res = tu.gather_rows(world.lp_res,
                                  cand.dst.clamp(0, spec.n_lp - 1))
             dirty = sync.conflict_mask(exec_safe, table_id, res,
@@ -463,8 +513,8 @@ class Engine:
         # the window's one host read besides `done`: which kinds the clean
         # rows hold (handlers of absent kinds are not evaluated), and the
         # fallback's trip count and row kinds
-        host = self._read(
-            torch.cat([present, n_dirty, dkind.reshape(-1)])).tolist()
+        host = (yield sh.Read(
+            torch.cat([present, n_dirty, dkind.reshape(-1)]))).tolist()
         clean_kinds = {k for k in range(nk) if host[k] > 0}
         n_dirty_h, dkind_h = host[nk:nk + A], host[nk + A:]
 
@@ -534,90 +584,197 @@ class Engine:
         return pool2, counters, dropped
 
     def _route_and_insert(self, world, pool: ev.EventPool, counters,
-                          emits: ev.EventBatch, migrate: bool = False):
-        """Route emits by destination agent and insert (steps 5-6). The
-        reference's ``all_to_all`` is a transpose of the (A_src, A_dst,
-        route_cap) buffer; receive order is ascending source agent.
+                          emits: ev.EventBatch, axes: sh.ShardAxes, s: int,
+                          migrate: bool = False):
+        """Route emits by destination agent and insert (steps 5-6): a
+        generator over shard ``s``'s rows, as ``_window``. Every row scatters
+        its emits into a (size * route_cap) send buffer by destination, the
+        exchange (``shards.Exchange``, the reference's ``all_to_all``)
+        hands agent d every source's block d in ascending source order, and
+        the receivers insert. ``size`` is the fleet's agent count, padded
+        to D * K across shards, so the sentinel of invalid rows and the
+        bucket count of ``route_rank`` cover the pad agents' ids.
 
         ``migrate`` is the placement migration's flavour: rows shipped to
         another agent are booked in ``C_MIGRATE_OUT`` (after the route cap)
         and rows received in ``C_MIGRATE_IN`` (before the insert), so the
         two sum to the same total; a receiver's overflow is ``C_DROP_POOL``.
-        An ensemble exchanges within each replica: (R, A_src, A_dst,
-        route_cap), ``me`` the agent's id within its replica."""
+        An ensemble exchanges within each replica."""
         spec = self.spec
-        A, R = spec.n_agents, self._replicas
-        if A == 1:
-            pool, counters, dropped = self._insert(pool, counters, emits)
-            counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
-            counters = mon.bump(counters, mon.C_LP_LOCAL,
-                                tu.isum(emits.valid, 1))
+        n = axes.size
+        if n == 1:
+            with record_function("window.insert"):
+                pool, counters, dropped = self._insert(pool, counters, emits)
+                counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
+                counters = mon.bump(counters, mon.C_LP_LOCAL,
+                                    tu.isum(emits.valid, 1))
             return pool, counters
 
-        dev = emits.time.device
-        me = tu.arange(A, dev).repeat(R)[:, None]
-        rcap = spec.route_cap
-        dst_agent = torch.where(
-            emits.valid,
-            tu.gather_rows(world.lp_agent, emits.dst.clamp(0, spec.n_lp - 1)),
-            A)
-        rank = self.route_fn(dst_agent)
+        with record_function("window.route"):
+            dev = emits.time.device
+            me = axes.me(s)[:, None]
+            rcap = spec.route_cap
+            dst_agent = torch.where(
+                emits.valid,
+                tu.gather_rows(world.lp_agent,
+                               emits.dst.clamp(0, spec.n_lp - 1)), n)
+            rank = (ops.route_rank(dst_agent, n_buckets=n + 1)
+                    if self.route_fn is None else self.route_fn(dst_agent))
 
-        ok = emits.valid & (rank < rcap)
-        counters = mon.bump(counters, mon.C_DROP_ROUTE,
-                            tu.isum(emits.valid & ~ok, 1))
-        counters = mon.bump(counters, mon.C_MSGS_REMOTE,
-                            tu.isum(ok & (dst_agent != me), 1))
-        counters = mon.bump(counters, mon.C_LP_LOCAL,
-                            tu.isum(ok & (dst_agent == me), 1))
-        if migrate:
-            counters = mon.bump(counters, mon.C_MIGRATE_OUT,
+            ok = emits.valid & (rank < rcap)
+            counters = mon.bump(counters, mon.C_DROP_ROUTE,
+                                tu.isum(emits.valid & ~ok, 1))
+            counters = mon.bump(counters, mon.C_MSGS_REMOTE,
                                 tu.isum(ok & (dst_agent != me), 1))
-        flat = torch.where(ok, dst_agent * rcap + rank, A * rcap)
-
-        # the all_to_all: scatter into (A_src, A_dst * route_cap), then
-        # transpose so agent d receives every source's block d in order
-        fills = (ev.T_INF, 0, 0, 0, 0, 0, 0.0, False)
-        bufs = [torch.full((R * A, A * rcap) + col.shape[2:], fill,
-                           dtype=col.dtype, device=dev)
-                for col, fill in zip(emits, fills)]
-        rx = ev.EventBatch(*(
-            b.reshape((R, A, A, rcap) + b.shape[2:]).transpose(1, 2).reshape(
-                (R * A, A * rcap) + b.shape[2:])
-            for b in tu.scatter_rows_many(bufs, flat, list(emits))))
-        if migrate:
-            counters = mon.bump(counters, mon.C_MIGRATE_IN,
-                                tu.isum(rx.valid, 1))
-        pool, counters, dropped = self._insert(pool, counters, rx)
-        counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
+            counters = mon.bump(counters, mon.C_LP_LOCAL,
+                                tu.isum(ok & (dst_agent == me), 1))
+            if migrate:
+                counters = mon.bump(counters, mon.C_MIGRATE_OUT,
+                                    tu.isum(ok & (dst_agent != me), 1))
+            flat = torch.where(ok, dst_agent * rcap + rank, n * rcap)
+            # each row's send buffer (size * route_cap): block d for agent d
+            fills = (ev.T_INF, 0, 0, 0, 0, 0, 0.0, False)
+            rows = emits.time.shape[0]
+            bufs = [torch.full((rows, n * rcap) + col.shape[2:], fill,
+                               dtype=col.dtype, device=dev)
+                    for col, fill in zip(emits, fills)]
+            sent = tu.scatter_rows_many(bufs, flat, list(emits))
+        rx = ev.EventBatch(*(yield sh.Exchange(sent, rcap)))
+        with record_function("window.insert"):
+            if migrate:
+                counters = mon.bump(counters, mon.C_MIGRATE_IN,
+                                    tu.isum(rx.valid, 1))
+            pool, counters, dropped = self._insert(pool, counters, rx)
+            counters = mon.bump(counters, mon.C_DROP_POOL, dropped)
         return pool, counters
 
     # -------------------------------------------------------------- migration
+    def _placement(self, st: EngineState, new_lp_agent, axes: sh.ShardAxes,
+                   s: int):
+        """Shard ``s``'s part of a placement change (a generator, as
+        ``_window``): every row takes the fleet-wide ``lp_agent``; then, in
+        a fleet of more than one agent, each row extracts the pending events
+        whose LP it no longer owns, ``pop_mask`` canonicalizes its free
+        ring, and they travel the routing path with ``migrate=True``."""
+        dev = st.t_now.device
+        la = torch.as_tensor(new_lp_agent, dtype=I32, device=dev)
+        world = st.world._replace(lp_agent=la[None].expand(
+            st.t_now.shape[0], la.shape[0]).contiguous())
+        if self.spec.n_agents == 1:
+            return st._replace(world=world)
+        pool = st.pool
+        owner = tu.gather_rows(world.lp_agent,
+                               pool.dst.clamp(0, self.spec.n_lp - 1))
+        moving = pool.valid & (owner != axes.me(s)[:, None])
+        emits = ev.extract(pool, moving)
+        pool = ev.pop_mask(pool, moving)
+        pool, counters = yield from self._route_and_insert(
+            world, pool, st.counters, emits, axes, s, migrate=True)
+        return st._replace(world=world, pool=pool, counters=counters)
+
     def apply_placement_local(self, st: EngineState,
                               new_lp_agent) -> EngineState:
         """Move LPs to a new placement (paper §4.1, dynamic decomposition).
 
         Component state is replicated, so migration rewrites ``lp_agent``
         (fleet-wide, (n_lp,)) and re-homes the pending events whose LP
-        moved: each donor extracts them, ``pop_mask`` canonicalizes its free
-        ring, and they travel the routing path with ``migrate=True`` (the
-        ``route_rank`` kernel over the whole pool)."""
+        moved through the routing path (the ``route_rank`` kernel over the
+        whole pool), booked in ``C_MIGRATE_OUT``/``C_MIGRATE_IN``."""
+        axes = self._local_axes(st)
+        return sh.lockstep(axes, [self._placement(st, new_lp_agent, axes, 0)],
+                           self._read)[0]
+
+    def apply_placement_distributed(self, st: EngineState, new_lp_agent,
+                                    mesh) -> EngineState:
+        """:meth:`apply_placement_local` across the shards of ``mesh``: the
+        unpadded (A, ...) ``st`` is padded and split, every shard ships its
+        moving events through the exchange, and the unpadded result equals
+        ``apply_placement_local``'s on the same state byte for byte."""
+        axes = self._dist_axes(mesh)
+        shards = self._split(self._pad_state(st, axes.size), axes)
+        out = sh.lockstep(axes, [
+            self._placement(x, new_lp_agent, axes, s)
+            for s, x in enumerate(shards)], self._read)
+        return self._slice_state(self._join(out))
+
+    # ----------------------------------------------------------------- shards
+    def _local_axes(self, st: EngineState) -> sh.ShardAxes:
+        """One shard holding every row of ``st`` (an ensemble's replicas
+        grouped)."""
+        return sh.ShardAxes((st.t_now.device,), st.t_now.shape[0],
+                            self._replicas)
+
+    def _dist_axes(self, mesh) -> sh.ShardAxes:
+        """The packing of ``mesh`` (a list of devices, one a shard): ``K =
+        ceil(A / D)`` agents a shard, the state padded to D * K rows."""
+        devices = tuple(resolve_device(d) for d in mesh)
+        if not devices:
+            raise ValueError("the drivers across devices need a mesh of at "
+                             "least one device")
+        k = -(-self.spec.n_agents // len(devices))
+        return sh.ShardAxes(devices, k)
+
+    def _pad_state(self, st: EngineState, a_pad: int) -> EngineState:
+        """Pad a stacked (A, ...) state to ``a_pad`` rows with inert agents.
+
+        A pad agent's pool is empty, so it adds T_INF to the GVT; its
+        ``lp_agent`` row is agent 0's, which names only real agents, so it
+        owns no LP and contributes only zeros to the owner-wins sync and
+        never receives an event. The uniform fields (the replicated world,
+        ``t_now``, ``done``, ``windows``) are broadcast from row 0, so a
+        state resumed mid-run stays uniform; counters and trace are zeroed
+        (the pad rows are sliced off every result, and all-zero rows leave
+        the adaptive stats' maxima as they are)."""
+        n = a_pad - st.t_now.shape[0]
+        if n == 0:
+            return st
+        dev = st.t_now.device
+
+        def rep0(x):
+            return torch.cat([x, x[:1].expand((n,) + x.shape[1:])])
+
+        def zero(x):
+            return torch.cat([x, x.new_zeros((n,) + x.shape[1:])])
+
+        epool = ev.empty_pool(self.spec.pool_cap, n, dev)
+        return EngineState(
+            world=type(st.world)(*map(rep0, st.world)),
+            pool=type(st.pool)(*(torch.cat([x, e])
+                                 for x, e in zip(st.pool, epool))),
+            counters=zero(st.counters), t_now=rep0(st.t_now),
+            done=rep0(st.done), windows=rep0(st.windows),
+            trace=zero(st.trace), trace_n=zero(st.trace_n),
+            trace_tail=zero(st.trace_tail))
+
+    def _slice_state(self, st: EngineState) -> EngineState:
+        """Drop the pad agents' rows: the real agents' (A, ...) state."""
         A = self.spec.n_agents
-        la = torch.as_tensor(new_lp_agent, dtype=I32, device=self.device)
-        world = st.world._replace(
-            lp_agent=la[None].expand(A, la.shape[0]).contiguous())
-        if A == 1:
-            return st._replace(world=world)
-        pool = st.pool
-        me = tu.arange(A, self.device)[:, None]
-        owner = tu.gather_rows(world.lp_agent,
-                               pool.dst.clamp(0, self.spec.n_lp - 1))
-        moving = pool.valid & (owner != me)
-        emits = ev.extract(pool, moving)
-        pool = ev.pop_mask(pool, moving)
-        pool, counters = self._route_and_insert(world, pool, st.counters,
-                                                emits, migrate=True)
-        return st._replace(world=world, pool=pool, counters=counters)
+        if st.t_now.shape[0] == A:
+            return st
+        return map_state(lambda x: x[:A], st)
+
+    def _split(self, st: EngineState, axes: sh.ShardAxes) -> list:
+        """A padded (D * K, ...) state as D shard states, each a copy on
+        its shard's device."""
+        k = axes.n_lanes
+        return [map_state(lambda x: x[s * k:(s + 1) * k].to(dev, copy=True),
+                          st) for s, dev in enumerate(axes.devices)]
+
+    def _join(self, shards: list) -> EngineState:
+        """The shard states stacked shard-major on the first one's device."""
+        if len(shards) == 1:
+            return shards[0]
+        dev = shards[0].t_now.device
+        return map_state(lambda *xs: torch.cat([x.to(dev) for x in xs]),
+                         *shards)
+
+    def _rows(self, shards: list, fn) -> torch.Tensor:
+        """``fn(shard state)`` of every shard, stacked on the first one's
+        device (the host reads of the drivers)."""
+        if len(shards) == 1:
+            return fn(shards[0])
+        dev = shards[0].t_now.device
+        return torch.cat([fn(st).to(dev) for st in shards])
 
     # ------------------------------------------------------------ host layer
     @property
@@ -645,7 +802,7 @@ class Engine:
 
     def _finalize_streams(self, st: EngineState) -> EngineState:
         """Flush the never-drained tail spans and the final metrics record
-        out of the finished state."""
+        out of the finished (unpadded) state."""
         if self.trace_stream is not None:
             self.trace_stream.finalize(st.trace.cpu().numpy(),
                                        st.trace_n.cpu().numpy(),
@@ -656,77 +813,86 @@ class Engine:
                                          st.t_now.cpu().numpy())
         return st
 
-    def _start(self, st: EngineState, widths, max_windows: int,
-               hosted: bool):
+    def _start(self, shards: list, widths, max_windows: int, hosted: bool):
         """Arm a run: the streams, then one host read of the window count
-        (and, with a trace stream, ``trace_tail``, which the host mirrors
-        from here on). Returns (window limit, tail): ``max_windows`` counts
-        all windows under the plain driver and this call's under the host
-        layer, as in the reference."""
+        (and, with a trace stream, every row's ``trace_tail``, which the
+        host mirrors from here on). Returns (window limit, tail):
+        ``max_windows`` counts all windows under the plain driver and this
+        call's under the host layer, as in the reference."""
         self._begin_streams(widths)
-        parts = [st.windows[:1]]
+        parts = [shards[0].windows[:1]]
         if self.trace_stream is not None:
-            parts.append(st.trace_tail)
+            parts.append(self._rows(shards, lambda st: st.trace_tail))
         host = self._read(torch.cat(parts)).tolist()
         limit = host[0] + max_windows if hosted else max_windows
         return limit, (host[1:] if self.trace_stream is not None else None)
 
-    def _window_start(self, st: EngineState, limit: int, tail, xcap: int):
-        """The host read before a window: ``done``, the window count and,
-        with a trace stream, every agent's ``trace_n``, then the drain.
-        Returns (state, window index or None at the end, tail)."""
-        parts = [st.done[:1].to(I32), st.windows[:1]]
+    def _window_start(self, shards: list, limit: int, tail, xcap: int):
+        """The host read before a window: ``done``, the window count (both
+        uniform, read off the first row) and, with a trace stream, every
+        row's ``trace_n``, then the drain. Returns (shards, window index or
+        None at the end, tail)."""
+        st0 = shards[0]
+        parts = [st0.done[:1].to(I32), st0.windows[:1]]
         if self.trace_stream is not None:
-            parts.append(st.trace_n)
+            parts.append(self._rows(shards, lambda st: st.trace_n))
         host = self._read(torch.cat(parts)).tolist()
         done, windows = bool(host[0]), host[1]
         if done or windows >= limit:
-            return st, None, tail
+            return shards, None, tail
         if self.trace_stream is not None:
-            st, tail = self._drain(st, windows, host[2:], tail, xcap)
-        return st, windows, tail
+            shards, tail = self._drain(shards, windows, host[2:], tail, xcap)
+        return shards, windows, tail
 
-    def _drain(self, st: EngineState, windows: int, trace_n: list,
-               tail: list, xcap: int):
+    def _drain(self, shards: list, windows: int, trace_n: list, tail: list,
+               xcap: int):
         """The window-start drain (before this window's writes): ship each
-        agent's span ``[trace_tail, trace_n)`` when the cadence hits or when
+        row's span ``[trace_tail, trace_n)`` when the cadence hits or when
         this window's widest write could overrun the ring, then move
-        ``trace_tail`` to ``trace_n`` there. The ring is copied to the host
-        only when some span is not empty; ``tail`` is the host's mirror of
-        ``trace_tail``."""
-        tcap = st.trace.shape[1]
+        ``trace_tail`` to ``trace_n`` there. The rings are copied to the
+        host (one read for all shards, merged shard-major) only when some
+        span is not empty; a pad agent's span always is. ``tail`` is the
+        host's mirror of ``trace_tail``."""
+        tcap = shards[0].trace.shape[1]
         cadence = windows % self.drain_every == 0
         pending = [n - t for n, t in zip(trace_n, tail)]
         do = [cadence or p + xcap > tcap for p in pending]
         count = [p if d else 0 for p, d in zip(pending, do)]
         if any(c > 0 for c in count):
-            ring = self._read(st.trace)
+            ring = self._read(self._rows(shards, lambda st: st.trace))
             self.drains += 1
             self.drain_bytes += ring.nbytes
             self.trace_stream.on_drain(np.arange(len(tail)), np.array(tail),
                                        np.array(count), ring)
         new_tail = [n if d else t for n, t, d in zip(trace_n, tail, do)]
         if new_tail != tail:
-            st = st._replace(trace_tail=torch.tensor(
-                new_tail, dtype=I32, device=st.trace_tail.device))
-        return st, new_tail
+            k = len(tail) // len(shards)
+            shards = [st._replace(trace_tail=torch.tensor(
+                new_tail[s * k:(s + 1) * k], dtype=I32,
+                device=st.trace_tail.device)) for s, st in enumerate(shards)]
+        return shards, new_tail
 
-    def _window_end(self, st: EngineState, window: int, rung=None,
+    def _window_end(self, shards: list, window: int, rung=None,
                     host_counters=None) -> None:
         """After a window: the metrics record (the counters read only on
-        the stream's interval windows, unless the caller read them), the
-        due checkpoint, then the window hook."""
+        the stream's interval windows, unless the caller read them; pad
+        agents' rows are ignored), the due checkpoint of the unpadded
+        state, then the window hook with that state."""
         ms = self.metrics_stream
         if ms is not None and window % ms.interval == 0:
             host = host_counters
             if host is None:
-                host = self._read(torch.cat([st.t_now[:, None], st.counters],
-                                            1))
-            A = host.shape[0]
-            ms.on_window(np.arange(A), np.full(A, window), host[:, 0],
+                host = self._read(self._rows(shards, lambda st: torch.cat(
+                    [st.t_now[:, None], st.counters], 1)))
+            n = host.shape[0]
+            ms.on_window(np.arange(n), np.full(n, window), host[:, 0],
                          host[:, 1:])
         ck = self.checkpointer
-        if ck is not None and ck.due(window):
+        due = ck is not None and ck.due(window)
+        if not due and self.window_hook is None:
+            return
+        st = self._slice_state(self._join(shards))
+        if due:
             ck.save_sim(window, st, engine=self, rung=rung)
         if self.window_hook is not None:
             self.window_hook(window, st)
@@ -735,10 +901,53 @@ class Engine:
         """Load a checkpoint of this engine's checkpointer: returns a
         ``SimCheckpoint(step, state, rung)`` for a driver's ``state=`` (and
         ``rung=``), and stages its trace spans and metrics records in the
-        attached streams."""
+        attached streams. The state is unpadded, so any driver resumes it,
+        on any number of shards."""
         if self.checkpointer is None:
             raise ValueError("no checkpointer attached to this engine")
         return self.checkpointer.restore_sim(self, step=step)
+
+    def _drive(self, shards: list, axes: sh.ShardAxes, max_windows: int,
+               hosted: bool, policy: "pol.ExecPolicy | None" = None,
+               rung: int | None = None) -> list:
+        """The host-stepped window loop of ``run_local``,
+        ``run_distributed`` and their adaptive twins, over one state a
+        shard. Each window: the host read of ``done`` (and the drain), the
+        shards' window in lockstep, then, under a ``policy``, one read of
+        every row's counters and the next rung, the hottest shard's
+        (``policy.choose_rung_lockstep``; one shard is ``run_adaptive``'s
+        ``choose_rung``), then the metrics, the checkpoint and the hook."""
+        ring = self.trace_stream is not None
+        widths = [self.spec.exec_cap] if policy is None else policy.ladder
+        limit, tail = self._start(shards, widths, max_windows, hosted)
+        if policy is not None:
+            rung = policy.init_rung if rung is None else int(rung)
+            prev = self._read(self._rows(shards, lambda st: st.counters))
+            rungs: list[int] = []
+        while True:
+            width = widths[0] if policy is None else widths[rung]
+            shards, w, tail = self._window_start(shards, limit, tail,
+                                                 self._xcap(width))
+            if w is None:
+                break
+            host = None
+            if policy is not None:
+                rungs.append(rung)
+            shards = self._step(shards, axes, exec_cap=width, ring=ring)
+            if policy is not None:
+                # the window's one read of the counters, with t_now for the
+                # metrics record
+                host = self._read(self._rows(shards, lambda st: torch.cat(
+                    [st.t_now[:, None], st.counters], 1)))
+                cur = host[:, 1:]
+                rung = pol.choose_rung_lockstep(
+                    policy, rung, pol.shard_window_stats(
+                        prev, cur, self.spec.pool_cap, axes.n_shards))
+                prev = cur
+            self._window_end(shards, w + 1, rung=rung, host_counters=host)
+        if policy is not None:
+            self.adaptive_rungs = tuple(rungs)
+        return shards
 
     # ------------------------------------------------------------------- run
     def step_local(self, st: EngineState) -> EngineState:
@@ -752,17 +961,9 @@ class Engine:
         reference's ``while_loop`` test) or ``max_windows``, with the host
         layer (streams, checkpoints, the window hook) at each boundary."""
         st = self.init_state() if state is None else state
-        width = self.spec.exec_cap
-        xcap = self._xcap(width)
-        limit, tail = self._start(st, [width], max_windows,
-                                  self._streaming or self._checkpointing)
-        while True:
-            st, w, tail = self._window_start(st, limit, tail, xcap)
-            if w is None:
-                break
-            st = self._superstep(st, ring=self.trace_stream is not None)
-            self._window_end(st, w + 1)
-        return self._finalize_streams(st)
+        hosted = self._streaming or self._checkpointing
+        out = self._drive([st], self._local_axes(st), max_windows, hosted)
+        return self._finalize_streams(out[0])
 
     def run_adaptive(self, max_windows: int = 10_000,
                      policy: "pol.ExecPolicy | int | None" = None,
@@ -781,31 +982,54 @@ class Engine:
         this call, as in the reference."""
         p = pol.normalize(self.spec.exec_policy if policy is None else policy)
         st = self.init_state() if state is None else state
-        limit, tail = self._start(st, p.ladder, max_windows, True)
-        rung = p.init_rung if rung is None else int(rung)
-        prev = self._read(st.counters)
-        rungs: list[int] = []
-        while True:
-            width = p.ladder[rung]
-            st, w, tail = self._window_start(st, limit, tail,
-                                             self._xcap(width))
-            if w is None:
-                break
-            rungs.append(rung)
-            st = self._superstep(st, exec_cap=width,
-                                 ring=self.trace_stream is not None)
-            # the window's one read of the counters, with t_now for the
-            # metrics record
-            host = self._read(torch.cat([st.t_now[:, None], st.counters],
-                                        1))
-            cur = host[:, 1:]
-            rung = pol.choose_rung(p, rung,
-                                   pol.window_stats(prev, cur,
-                                                    self.spec.pool_cap))
-            prev = cur
-            self._window_end(st, w + 1, rung=rung, host_counters=host)
-        self.adaptive_rungs = tuple(rungs)
-        return self._finalize_streams(st)
+        out = self._drive([st], self._local_axes(st), max_windows, True,
+                          policy=p, rung=rung)
+        return self._finalize_streams(out[0])
+
+    def run_distributed(self, mesh, max_windows: int = 10_000,
+                        state: EngineState | None = None) -> EngineState:
+        """The run across the shards of ``mesh`` (a list of torch devices,
+        one a shard; ``launch.mesh.make_sim_mesh``), the counterpart of the
+        reference's ``shard_map`` x ``vmap`` driver.
+
+        ``K = ceil(A / D)`` agents go to each of the D shards, the state
+        padded to D * K rows with inert agents. Every shard runs the window
+        on its own (K, ...) state and launches its own kernels at K rows;
+        the GVT, the routing exchange and the owner-wins sync are the
+        collectives between them (``core/shards.py``), the exchange's
+        receive order ascending global source agent, so the result equals
+        ``run_local``'s byte for byte, pool slot layouts included, wherever
+        the reference's own two drivers agree. A shard of one lane sums its
+        flows in the one-lane order, as the reference's dropped size-1 vmap
+        does. ``state`` resumes from an unpadded state, on any D; the result
+        is unpadded. With streams or a checkpointer attached the host layer
+        runs as in ``run_local``: the rings drain shard-major into
+        ``merged_engine_trace``'s order, and checkpoints hold the unpadded
+        state."""
+        axes = self._dist_axes(mesh)
+        st = self._pad_state(self.init_state() if state is None else state,
+                             axes.size)
+        hosted = self._streaming or self._checkpointing
+        out = self._drive(self._split(st, axes), axes, max_windows, hosted)
+        return self._finalize_streams(self._slice_state(self._join(out)))
+
+    def run_distributed_adaptive(self, mesh, max_windows: int = 10_000,
+                                 policy: "pol.ExecPolicy | int | None" = None,
+                                 state: EngineState | None = None,
+                                 rung: int | None = None) -> EngineState:
+        """``run_adaptive`` across the shards of ``mesh``: every shard runs
+        the window at the fleet's rung, the host reads every row's counters
+        once a window, decides a rung a shard and takes the largest
+        (``policy.choose_rung_lockstep``), so the rung trajectory equals
+        ``run_adaptive``'s. ``state`` and ``rung`` resume from a checkpoint,
+        on any D."""
+        p = pol.normalize(self.spec.exec_policy if policy is None else policy)
+        axes = self._dist_axes(mesh)
+        st = self._pad_state(self.init_state() if state is None else state,
+                             axes.size)
+        out = self._drive(self._split(st, axes), axes, max_windows, True,
+                          policy=p, rung=rung)
+        return self._finalize_streams(self._slice_state(self._join(out)))
 
     # ------------------------------------------------------- ensemble driver
     def ensemble_state(self, seeds, seed_fn: Callable | None = None

@@ -10,8 +10,8 @@ that execute nothing. :class:`ExecPolicy` picks the next window's width from
 a small fixed ladder, from the per-window counter deltas. Decisions are pure
 host-side functions, so an adaptive run is exactly reproducible, and
 spilling is oracle-exact for any width sequence: the policy trades only the
-window count and the per-window cost. The shard-wise variants belong with
-the distributed driver, which the port does not have yet.
+window count and the per-window cost. The drivers across devices decide a
+rung a shard and take the largest (:func:`choose_rung_lockstep`).
 """
 from __future__ import annotations
 
@@ -99,6 +99,18 @@ def window_stats(prev_counters, counters, pool_cap: int) -> WindowStats:
     )
 
 
+def shard_window_stats(prev_counters, counters, pool_cap: int,
+                       n_shards: int) -> tuple[WindowStats, ...]:
+    """Per-shard :class:`WindowStats` from two (D * K, N) counter snapshots
+    of the shard-major layout: shard d owns rows ``[d*K, (d+1)*K)``."""
+    prev = np.asarray(prev_counters)
+    cur = np.asarray(counters)
+    k = prev.shape[0] // n_shards
+    return tuple(
+        window_stats(prev[d * k:(d + 1) * k], cur[d * k:(d + 1) * k], pool_cap)
+        for d in range(n_shards))
+
+
 def choose_rung(policy: ExecPolicy, rung: int, stats: WindowStats) -> int:
     """The next window's ladder rung (pure, host-side, deterministic)."""
     width = policy.ladder[rung]
@@ -115,3 +127,12 @@ def choose_rung(policy: ExecPolicy, rung: int, stats: WindowStats) -> int:
         if sparse:
             return rung - 1
     return rung
+
+
+def choose_rung_lockstep(policy: ExecPolicy, rung: int,
+                         shard_stats: tuple[WindowStats, ...]) -> int:
+    """The fleet's next rung across shards: the largest of the shards'
+    decisions. Every :func:`choose_rung` condition is monotone in the
+    stats, so this is ``choose_rung`` of the stats' maxima over all rows,
+    and the rung trajectory equals ``run_adaptive``'s."""
+    return max(choose_rung(policy, rung, s) for s in shard_stats)

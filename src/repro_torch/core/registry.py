@@ -532,39 +532,22 @@ class Registry:
                     [delta[f] for f in fields])))
         return world._replace(**out)
 
-    def sync_world(self, world, own, n_groups: int = 1):
-        """Owner-wins replication sync over the agent dimension.
-
-        Mutable fields sum ``where(mine, row, 0)`` over agents (one nonzero
-        contribution per row, so the order of the sum does not matter); int
-        fields with a nonzero fill are shifted so the pad value survives; bool
-        fields sum as int32, then ``> 0``. A single agent is the identity.
-        ``n_groups`` splits the rows into that many equal runs (an
-        ensemble's replicas), each synced over its own agents.
-        """
-        G = n_groups
-        A = world.lp_kind.shape[0] // G
-        if A == 1:
-            return world
-        me = torch.arange(A, dtype=torch.int32,
-                          device=world.lp_kind.device).repeat(G)
-
-        def owner_wins(x, mask):
+    def owner_parts(self, world, own, me: torch.Tensor):
+        """The owner-wins sync's contributions of the rows ``me`` (each
+        row's global agent id): per mutable field, the row's value where
+        that agent owns the element, else 0. Int fields with a nonzero fill
+        are shifted so the pad value survives the sum; bool fields count as
+        int32. Returns ``(plan, parts)`` for :meth:`owner_merge`."""
+        def part(x, mask):
             m = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
-            g = (G, A) + x.shape[1:]
             if x.dtype == torch.bool:
-                y = torch.where(m, x.to(torch.int32), 0).reshape(g).sum(
-                    1, dtype=torch.int32) > 0
-            elif x.dtype == torch.int32:
-                y = torch.where(m, x, 0).reshape(g).sum(1, dtype=torch.int32)
-            else:
-                y = torch.where(m, x, torch.zeros(
-                    (), dtype=x.dtype, device=x.device)).reshape(g).sum(1)
-            return y[:, None].expand(g).reshape(x.shape)
+                return torch.where(m, x.to(torch.int32), 0)
+            return torch.where(m, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
 
         lp_mine = world.lp_agent == me[:, None]
-        out = {"lp_state": owner_wins(world.lp_state, lp_mine),
-               "lp_lvt": owner_wins(world.lp_lvt, lp_mine)}
+        plan = [("lp_state", 0), ("lp_lvt", 0)]
+        parts = [part(world.lp_state, lp_mine), part(world.lp_lvt, lp_mine)]
         for comp in self._components.values():
             res_lp = getattr(own, comp.own_field)
             mask = world.lp_agent[:, res_lp.long()] == me[:, None]
@@ -572,11 +555,40 @@ class Registry:
                 if not fs.mutable:
                     continue
                 x = getattr(world, fname)
-                if fs.fill != 0 and x.dtype != torch.bool:
-                    out[fname] = owner_wins(x - fs.fill, mask) + fs.fill
-                else:
-                    out[fname] = owner_wins(x, mask)
+                shift = fs.fill if x.dtype != torch.bool else 0
+                plan.append((fname, shift))
+                parts.append(part(x - shift if shift else x, mask))
+        return plan, parts
+
+    def owner_merge(self, world, plan, totals):
+        """The synced world from :meth:`owner_parts`' plan and the sums of
+        its parts over every agent of the fleet."""
+        out = {}
+        for (fname, shift), t in zip(plan, totals):
+            if getattr(world, fname).dtype == torch.bool:
+                out[fname] = t > 0
+            else:
+                out[fname] = t + shift if shift else t
         return world._replace(**out)
+
+    def sync_world(self, world, own, n_groups: int = 1):
+        """Owner-wins replication sync over the agent dimension of one
+        device: every mutable field sums :meth:`owner_parts` over the agents
+        (one nonzero contribution per element, so the order of the sum does
+        not matter). A single agent is the identity. ``n_groups`` splits the
+        rows into that many equal runs (an ensemble's replicas), each synced
+        over its own agents. The drivers across devices sum the same parts
+        across their shards (``core/shards.py``).
+        """
+        G = n_groups
+        A = world.lp_kind.shape[0] // G
+        if A == 1:
+            return world
+        me = torch.arange(A, dtype=torch.int32,
+                          device=world.lp_kind.device).repeat(G)
+        plan, parts = self.owner_parts(world, own, me)
+        return self.owner_merge(world, plan,
+                                [tu.group_sum(x, G) for x in parts])
 
     def make_handlers(self, lookahead: int, work_per_mb: float = 1.0) -> list:
         """One ``(world, counters, e)`` lane kernel per kind id, in kind order."""

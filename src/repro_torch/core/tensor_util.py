@@ -105,3 +105,10 @@ def scatter_many(xs, agent: torch.Tensor, row: torch.Tensor, vals,
                                        include_self=True)
         out.append(flat[:A * R].reshape(x.shape))
     return out
+
+
+def group_sum(x: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
+    """The sum over the rows of each of ``n_groups`` equal runs of rows, in
+    ``x``'s dtype, broadcast back to every row of the run."""
+    g = x.reshape((n_groups, -1) + x.shape[1:])
+    return g.sum(1, keepdim=True, dtype=x.dtype).expand_as(g).reshape(x.shape)

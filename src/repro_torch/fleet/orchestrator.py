@@ -3,12 +3,12 @@
 preemptions.
 
 * **One entry point.** ``run(built, devices, policy)`` dispatches to
-  ``Engine.run_local`` or ``run_adaptive`` (``policy.driver="auto"`` picks
-  the adaptive driver when the spec carries an exec ladder), or to
-  ``run_ensemble`` for the catalog's ensemble entries. The drivers across
-  several devices (``distributed``, ``distributed_adaptive``, and ``auto``
-  over more than one device) are not ported yet: they raise
-  :class:`FleetError` and never run as ``local``.
+  ``Engine.run_local``/``run_adaptive`` on one device or
+  ``run_distributed``/``run_distributed_adaptive`` across the devices
+  (``policy.driver="auto"`` picks by the device count and by whether the
+  spec carries an exec ladder), or to ``run_ensemble`` for the catalog's
+  ensemble entries. The devices are a mesh: torch devices, one a shard,
+  which may share a card (``launch.mesh.make_sim_mesh``).
 * **Checkpoints at window boundaries.** A
   :class:`~repro_torch.checkpoint.SimCheckpointer` saves the state (with
   the drained trace spans and the metrics records) every
@@ -18,9 +18,10 @@ preemptions.
   the engine's window hook after any due save, and process death
   (SIGKILL), found at the next start through the ``fleet.json`` sidecar's
   missing clean flag.
-* **Resume** restores the latest committed checkpoint and re-enters the
-  driver on the surviving devices; the result is byte-identical to the run
-  that never stopped.
+* **Resume** restores the latest committed checkpoint (the unpadded
+  state) and re-enters the driver on the surviving devices, booking
+  ``RESHARD`` when their count changed; the result is byte-identical to the
+  run that never stopped.
 * **Caps and floors.** ``max_retries`` bounds the preemptions, the backoff
   (exponential, capped, through an injectable ``sleep``) spaces the
   attempts, and ``min_devices`` is the floor below which the run fails.
@@ -42,13 +43,9 @@ from repro_torch.checkpoint import SimCheckpointer
 from repro_torch.core import policy as pol_mod
 from repro_torch.core.engine import Engine
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_sim_mesh
 
 _SIDECAR = "fleet.json"
-
-DISTRIBUTED_NOT_PORTED = (
-    "the distributed drivers (run_distributed, run_distributed_adaptive) "
-    "are not ported yet: they come in a later slice of the port; run on "
-    "one device with driver 'local', 'adaptive' or 'ensemble'")
 
 
 class PreemptionError(RuntimeError):
@@ -68,17 +65,18 @@ class PreemptionError(RuntimeError):
 
 class FleetError(RuntimeError):
     """Unrecoverable orchestration failure: the device floor was breached,
-    the retry cap was exhausted, the policy is invalid, or the driver is
-    not ported."""
+    the retry cap was exhausted, or the policy is invalid."""
 
 
 @dataclasses.dataclass(frozen=True)
 class FleetPolicy:
     """Declarative orchestration policy for one elastic run.
 
-    ``driver`` selects the engine driver (``"auto"``: the adaptive driver
-    when the spec carries an exec ladder, else ``local``; ``"ensemble"``
-    runs the seeds driver, which neither checkpoints nor resumes).
+    ``driver`` selects the engine driver (``"auto"``: ``distributed`` or
+    ``distributed_adaptive`` over more than one device, else ``local`` or
+    ``adaptive``, the adaptive ones when the spec carries an exec ladder;
+    ``"ensemble"`` runs the seeds driver, which neither checkpoints nor
+    resumes).
     ``checkpoint_dir`` enables checkpoints every ``checkpoint_every``
     windows (the resume path needs them); ``kill_after`` passes through to
     the SIGKILL crash harness. ``max_retries`` caps preemptions per run,
@@ -194,21 +192,25 @@ class Orchestrator:
 
     # ---------------------------------------------------------------- dispatch
     def _resolve_driver(self, pol: FleetPolicy, spec, n_devices: int) -> str:
-        if pol.driver in ("distributed", "distributed_adaptive") or (
-                pol.driver == "auto" and n_devices > 1):
-            raise FleetError(DISTRIBUTED_NOT_PORTED)
         if pol.driver != "auto":
             return pol.driver
         ladder = isinstance(spec.exec_policy, pol_mod.ExecPolicy)
+        if n_devices > 1:
+            return "distributed_adaptive" if ladder else "distributed"
         return "adaptive" if ladder else "local"
 
     def _dispatch(self, engine: Engine, driver: str, pol: FleetPolicy,
-                  state, rung):
+                  devices: list, state, rung):
         mw = pol.max_windows
         if driver == "local":
             return engine.run_local(mw, state=state)
         if driver == "adaptive":
             return engine.run_adaptive(mw, state=state, rung=rung)
+        if driver == "distributed":
+            return engine.run_distributed(devices, mw, state=state)
+        if driver == "distributed_adaptive":
+            return engine.run_distributed_adaptive(devices, mw, state=state,
+                                                   rung=rung)
         raise FleetError(f"unknown driver {driver!r}")  # pragma: no cover
 
     def _hook(self, attempt: int):
@@ -230,9 +232,10 @@ class Orchestrator:
         """Run a built scenario to completion.
 
         ``built`` is the ``(world, own, init_events, spec)`` tuple a
-        catalog entry resolves to; ``devices`` the torch devices to start on
-        (default: the CUDA card); ``policy`` overrides the constructor's;
-        ``seeds`` is the ensemble driver's seed vector.
+        catalog entry resolves to; ``devices`` the torch devices to start
+        on, one a shard (default: every CUDA card, ``make_sim_mesh()``);
+        ``policy`` overrides the constructor's; ``seeds`` is the ensemble
+        driver's seed vector.
 
         Use a fresh ``checkpoint_dir`` per logical run: committed
         checkpoints found there are taken as this run's and resumed (the
@@ -240,11 +243,10 @@ class Orchestrator:
         """
         pol = self.policy if policy is None else policy
         world, own, init_events, spec = built
-        devices = ([resolve_device(None)] if devices is None
+        devices = (make_sim_mesh() if devices is None
                    else [resolve_device(d) for d in devices])
         if pol.driver == "ensemble":
             return self._run_ensemble(built, pol, seeds, devices)
-        self._resolve_driver(pol, spec, len(devices))
         ck = None
         if pol.checkpoint_dir is not None and pol.checkpoint_every > 0:
             ck = SimCheckpointer(pol.checkpoint_dir,
@@ -289,7 +291,8 @@ class Orchestrator:
                     self._book("RESHARD")
             self._write_sidecar(pol, n_dev, clean=False)
             try:
-                st = self._dispatch(engine, driver, pol, state, rung)
+                st = self._dispatch(engine, driver, pol, devices, state,
+                                    rung)
             except PreemptionError as e:
                 self._book("PREEMPT")
                 attempt += 1

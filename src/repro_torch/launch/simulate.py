@@ -1,5 +1,4 @@
-"""Simulation launcher of the port (the ``t0t1``, ``workload``,
-``ensemble`` and ``run`` modes of ``repro.launch.simulate``).
+"""Simulation launcher of the port (the modes of ``repro.launch.simulate``).
 
   t0t1      reproduce the paper's §3.1 CERN study: a T0 -> T1 WAN bandwidth
             sweep, printing events, stale completions, interrupts, MB moved
@@ -7,6 +6,15 @@
             monitoring-driven width ladder (``Engine.run_adaptive``)
   workload  simulate a training cell from each dry-run roofline JSON record
             in ``--results`` (``core/workload.py``)
+  distributed
+            the T0/T1 scenario across ``--devices N`` shards
+            (``Engine.run_distributed``, default 8, the reference CLI's
+            forced host devices), ``--agents-per-device`` agents each;
+            ``--migrate`` moves the seeded agent's LPs to the other end of
+            the fleet through the exchange first, ``--adaptive-exec`` runs
+            the lockstep width ladder (``run_distributed_adaptive``). The
+            shards share ``--device``'s card(s) when there are fewer cards
+            than shards: that is not a multi-card run
   ensemble  a Monte Carlo failure-farm ensemble: ``--replicas`` seeds in one
             ``Engine.run_ensemble`` (one JSON summary record, then the
             ``[ensemble]`` line)
@@ -14,20 +22,23 @@
             the catalog) through ``fleet.Orchestrator``: checkpoints,
             injected (``--preempt-at-window``) and SIGKILL
             (``--kill-after-window``) preemptions, resume, retry caps;
-            ``--devices N`` counts devices, and N > 1 (the distributed
-            drivers) is not ported yet
+            ``--devices N`` runs on N shards of ``--device``'s kind (the
+            distributed drivers above one), and a preemption shrinks the
+            run to the survivors
 
-``t0t1`` takes the host layer's options. ``--stream-trace CAP`` streams the
-whole trace through a CAP-row ring (the line gains ``streamed=...
-trace_drop=...``), ``--metrics-interval N`` prints a JSON metrics record
-every N windows, ``--drain-every N`` sets the drain cadence.
+``t0t1`` and ``distributed`` take the host layer's options.
+``--stream-trace CAP`` streams the whole trace through a CAP-row ring (the
+line gains ``streamed=... trace_drop=...``), ``--metrics-interval N``
+prints a JSON metrics record every N windows, ``--drain-every N`` sets the
+drain cadence.
 ``--checkpoint-dir D --checkpoint-every W`` saves the engine state every W
 windows (``--checkpoint-keep`` newest kept), ``--resume`` continues from the
 latest checkpoint in D, and ``--kill-after-window W`` SIGKILLs the process
 right after the first committed checkpoint at window >= W (the crash
 harness). A sweep of several bandwidths keeps one subdirectory ``D/bw_<bw>``
-per bandwidth. The checkpoints are the reference's layout, so a run of
-either package, on the card or the CPU, resumes in the other.
+per bandwidth. The checkpoints are the reference's layout and hold the
+unpadded state, so a run of either package, on the card or the CPU, resumes
+in the other, and ``distributed --resume`` on any number of shards.
 
 Runs on the CUDA card unless ``--device cpu`` is given:
 
@@ -99,7 +110,8 @@ def build_checkpointer(args, directory=None):
 
 
 def t0t1_scenario(bw: float, flows: int, agents: int,
-                  batched_dispatch: bool = True, **spec_kw):
+                  batched_dispatch: bool = True,
+                  pool_cap: int = T0T1_POOL_CAP, **spec_kw):
     """The T0/T1 replication study at WAN bandwidth ``bw`` (MB/tick)."""
     from repro_torch.core import ScenarioBuilder
     from repro_torch.core.components import DATA_WRITE, FLOW_START, JOB_SUBMIT
@@ -118,7 +130,7 @@ def t0t1_scenario(bw: float, flows: int, agents: int,
                         notify2_kind=DATA_WRITE.id),
                     interval=15, count=flows)
     return b.build(n_agents=agents, lookahead=2, t_end=100_000,
-                   pool_cap=T0T1_POOL_CAP, work_per_mb=2.0,
+                   pool_cap=pool_cap, work_per_mb=2.0,
                    batched_dispatch=batched_dispatch, **spec_kw)
 
 
@@ -165,6 +177,102 @@ def run_t0t1(args) -> list[str]:
                 f"windows={int(st.windows[0])}" + extra)
         print(line, flush=True)
         lines.append(line)
+    return lines
+
+
+def run_distributed(args) -> list[str]:
+    import numpy as np
+
+    from repro_torch.core import Engine, merged_engine_trace
+    from repro_torch.launch.mesh import make_sim_mesh
+
+    mesh = make_sim_mesh(args.devices, args.device)
+    n_dev = len(mesh)
+    n = n_dev * args.agents_per_device
+    pool_cap = 512
+    world, own, init_ev, spec = t0t1_scenario(
+        0.5, args.flows, n, args.batched_dispatch, pool_cap=pool_cap,
+        merge_mode=args.merge_mode, insert_mode=args.insert_mode,
+        fused_select=args.fused_select, **exec_policy_args(args, pool_cap))
+    if args.stream_check and args.stream_trace is None:
+        raise SystemExit("--stream-check needs --stream-trace CAP")
+    ck = build_checkpointer(args)
+    if args.resume and args.migrate:
+        raise SystemExit("--resume and --migrate conflict: the checkpoint "
+                         "already contains the (possibly migrated) state")
+    stream_kw, ts, _ms = build_streams(args)
+    eng = Engine(world, own, init_ev, spec, device=mesh[0], checkpointer=ck,
+                 **stream_kw)
+    state = None
+    if args.migrate and n > 1:
+        # move the agent that holds the seeded events (the generator LP's
+        # owner) to the other end of the fleet, so its pool ships through
+        # the exchange, then continue from the migrated state
+        st0 = eng.init_state()
+        la = st0.world.lp_agent[0].cpu().numpy()
+        src = int(st0.pool.valid.sum(1).cpu().numpy().argmax())
+        dst = 0 if src != 0 else n - 1
+        new_la = np.where(la == src, dst,
+                          np.where(la == dst, src, la)).astype(np.int32)
+        state = eng.apply_placement_distributed(st0, new_la, mesh)
+    run_state, run_rung = state, None
+    if args.resume:
+        rec = eng.restore()
+        run_state, run_rung = rec.state, rec.rung
+        print(f"[resume] window {rec.step} from {args.checkpoint_dir} "
+              f"onto {n_dev} devices", flush=True)
+    if args.adaptive_exec:
+        st = eng.run_distributed_adaptive(mesh, max_windows=200_000,
+                                          state=run_state, rung=run_rung)
+    else:
+        st = eng.run_distributed(mesh, max_windows=200_000, state=run_state)
+    c = st.counters.sum(0).cpu()
+    extra = ""
+    if args.migrate:
+        extra = (f" migrate_out={int(c[mon.C_MIGRATE_OUT])}"
+                 f" migrate_in={int(c[mon.C_MIGRATE_IN])}")
+    if args.adaptive_exec:
+        extra += f" rungs={sorted(set(eng.adaptive_rungs))}"
+    if ts is not None:
+        extra += (f" streamed={ts.n_streamed}"
+                  f" trace_drop={int(c[mon.C_TRACE_DROP])}")
+    lines = [f"[distributed] agents={n} devices={n_dev} "
+             f"events={int(c[mon.C_EVENTS])} "
+             f"windows={int(st.windows[0])} "
+             f"remote_msgs={int(c[mon.C_MSGS_REMOTE])}" + extra]
+    print(lines[-1], flush=True)
+    if args.stream_check:
+        # the streamed (perhaps killed and resumed) trace dropped nothing,
+        # outgrew the ring, and equals an unstreamed run's from the start
+        # (or the migrated state), with a trace buffer that holds it all
+        drop = int(c[mon.C_TRACE_DROP])
+        if drop:
+            raise SystemExit(f"stream-check FAILED: C_TRACE_DROP={drop}")
+        tn = st.trace_n.cpu().numpy()
+        if int(tn.max()) <= args.stream_trace:
+            raise SystemExit(
+                f"stream-check vacuous: per-agent trace_n max {int(tn.max())}"
+                f" never exceeded the ring cap {args.stream_trace} - lower "
+                f"--stream-trace or raise the event count")
+        ref_eng = Engine(world, own, init_ev, spec, trace_cap=1 << 16,
+                         device=mesh[0])
+        if args.adaptive_exec:
+            ref = ref_eng.run_distributed_adaptive(mesh, max_windows=200_000,
+                                                   state=state)
+        else:
+            ref = ref_eng.run_distributed(mesh, max_windows=200_000,
+                                          state=state)
+        want = merged_engine_trace(ref.trace.cpu().numpy(),
+                                   ref.trace_n.cpu().numpy())
+        got = ts.merged()
+        if got != want:
+            raise SystemExit(
+                f"stream-check FAILED: streamed trace ({len(got)} rows) != "
+                f"in-device reference ({len(want)} rows)")
+        lines.append(f"[stream-check] OK: {len(got)} rows streamed through "
+                     f"a {args.stream_trace}-row ring == reference, "
+                     f"trace_drop=0")
+        print(lines[-1], flush=True)
     return lines
 
 
@@ -244,14 +352,10 @@ def run_catalog(args) -> list[str]:
     except catalog.CatalogError as e:
         raise SystemExit(str(e)) from None
 
-    from repro_torch.device import resolve_device
     from repro_torch.fleet import FleetPolicy, Orchestrator
-    from repro_torch.fleet.orchestrator import DISTRIBUTED_NOT_PORTED
+    from repro_torch.launch.mesh import make_sim_mesh
 
-    if args.devices is not None and args.devices > 1:
-        raise SystemExit(f"--devices {args.devices}: "
-                         f"{DISTRIBUTED_NOT_PORTED}")
-    devices = [resolve_device(args.device)][: args.devices]
+    devices = make_sim_mesh(args.devices or 1, args.device)
 
     preempt = None
     if args.preempt_at_window is not None:
@@ -315,10 +419,15 @@ def run_catalog(args) -> list[str]:
                 f"stream-check vacuous: per-agent trace_n max {int(tn.max())}"
                 f" never exceeded the ring cap {args.stream_trace}")
         ref_eng = Engine(*built, trace_cap=1 << 16, device=devices[0])
+        mesh = devices[: res.devices]
         if res.driver == "local":
             ref = ref_eng.run_local(pol.max_windows)
-        else:
+        elif res.driver == "adaptive":
             ref = ref_eng.run_adaptive(pol.max_windows)
+        elif res.driver == "distributed_adaptive":
+            ref = ref_eng.run_distributed_adaptive(mesh, pol.max_windows)
+        else:
+            ref = ref_eng.run_distributed(mesh, pol.max_windows)
         want = merged_engine_trace(ref.trace.cpu().numpy(),
                                    ref.trace_n.cpu().numpy())
         got = ts.merged()
@@ -348,6 +457,26 @@ def _stream_args(p) -> None:
                    help="trace-ring drain cadence in windows (a drain also "
                         "fires whenever the next window could overrun the "
                         "ring; default 16)")
+
+
+def _checkpoint_args(p) -> None:
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="directory of engine-state checkpoints (atomic "
+                        "step_* subdirectories; enables the other "
+                        "checkpoint options)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="W",
+                   help="save a checkpoint every W windows (0: none)")
+    p.add_argument("--checkpoint-keep", type=int, default=3, metavar="N",
+                   help="keep the newest N checkpoints (default 3)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in "
+                        "--checkpoint-dir (byte-identical to a run that "
+                        "never stopped; distributed: on any device count)")
+    p.add_argument("--kill-after-window", type=int, default=None,
+                   metavar="W",
+                   help="SIGKILL this process right after the first "
+                        "committed checkpoint at window >= W (the crash "
+                        "harness; needs --checkpoint-every)")
 
 
 def _device_arg(p) -> None:
@@ -391,29 +520,61 @@ def main(argv=None):
                     help="explicit width ladder for --adaptive-exec "
                          "(default: policy.default_ladder(pool_cap))")
     _stream_args(p1)
-    p1.add_argument("--checkpoint-dir", default=None, metavar="DIR",
-                    help="directory of engine-state checkpoints (atomic "
-                         "step_* subdirectories; enables the other "
-                         "checkpoint options)")
-    p1.add_argument("--checkpoint-every", type=int, default=0, metavar="W",
-                    help="save a checkpoint every W windows (0: none)")
-    p1.add_argument("--checkpoint-keep", type=int, default=3, metavar="N",
-                    help="keep the newest N checkpoints (default 3)")
-    p1.add_argument("--resume", action="store_true",
-                    help="continue from the latest checkpoint in "
-                         "--checkpoint-dir (byte-identical to a run that "
-                         "never stopped)")
-    p1.add_argument("--kill-after-window", type=int, default=None,
-                    metavar="W",
-                    help="SIGKILL this process right after the first "
-                         "committed checkpoint at window >= W (the crash "
-                         "harness; needs --checkpoint-every)")
+    _checkpoint_args(p1)
     _device_arg(p1)
     p2 = sub.add_parser("workload")
     p2.add_argument("--results", default="results/dryrun")
     p2.add_argument("--cell", default="")
     p2.add_argument("--limit", type=int, default=5)
     _device_arg(p2)
+    p3 = sub.add_parser("distributed")
+    p3.add_argument("--devices", type=int, default=8, metavar="N",
+                    help="shards of --device's kind (default 8, the "
+                         "reference CLI's forced host devices); they spread "
+                         "over the cards there are and share them when "
+                         "there are fewer cards")
+    p3.add_argument("--agents-per-device", type=int, default=2,
+                    help="agent rows in each shard (agents = devices x "
+                         "this; the engine pads uneven packings itself)")
+    p3.add_argument("--migrate", action="store_true",
+                    help="move the first and last agents' LP placements "
+                         "through the exchange before running, and report "
+                         "MIGRATE_OUT/MIGRATE_IN")
+    p3.add_argument("--adaptive-exec", action="store_true",
+                    help="lockstep monitoring-driven exec width "
+                         "(Engine.run_distributed_adaptive) instead of a "
+                         "static exec_cap")
+    p3.add_argument("--exec-ladder", type=int, nargs="+", default=None,
+                    help="explicit width ladder for --adaptive-exec "
+                         "(default: policy.default_ladder(pool_cap))")
+    p3.add_argument("--exec-cap", type=int, default=None,
+                    help="per-window compacted execution cap "
+                         "(default min(pool_cap, 256))")
+    p3.add_argument("--batched-dispatch", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="grouped batched handler dispatch (engine step 4); "
+                         "--no-batched-dispatch runs the sequential fold")
+    p3.add_argument("--merge-mode", choices=("delta", "dense"),
+                    default="delta",
+                    help="batched merge: per-row delta scatters (default) "
+                         "or the whole-table reference merge")
+    p3.add_argument("--insert-mode", choices=("ring", "ref"), default="ring",
+                    help="event-pool lifecycle: free-list ring (default) or "
+                         "the O(pool_cap) reference rank scan")
+    p3.add_argument("--fused-select", action="store_true",
+                    help="run the window front end as the one fused_select "
+                         "kernel, and the insert slots as ring_slots")
+    p3.add_argument("--flows", type=int, default=24,
+                    help="generator flow count (the event volume: raise it "
+                         "to push a run past the trace ring)")
+    _stream_args(p3)
+    p3.add_argument("--stream-check", action="store_true",
+                    help="after the streamed run, check C_TRACE_DROP == 0, "
+                         "that the trace outgrew the ring, and that the "
+                         "streamed trace equals an unstreamed run's; exit "
+                         "nonzero on any mismatch")
+    _checkpoint_args(p3)
+    _device_arg(p3)
     p4 = sub.add_parser("ensemble")
     p4.add_argument("--replicas", type=int, default=128,
                     help="Monte Carlo replicas in one run_ensemble "
@@ -435,16 +596,16 @@ def main(argv=None):
                          "for several; values are coerced to the default's "
                          "type, and undeclared keys are an error)")
     p5.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="start on the first N devices of --device's kind "
-                         "(default 1; N > 1 needs the distributed drivers, "
-                         "which are not ported yet)")
+                    help="start on N shards of --device's kind (default 1; "
+                         "shards spread over the cards there are and share "
+                         "them when there are fewer cards)")
     p5.add_argument("--driver",
                     choices=("auto", "local", "adaptive", "distributed",
                              "distributed_adaptive"), default="auto",
-                    help="engine driver (auto picks the adaptive driver "
-                         "from the spec's exec policy; ensemble catalog "
-                         "entries force their own driver; the distributed "
-                         "drivers are not ported yet)")
+                    help="engine driver (auto picks distributed/adaptive "
+                         "from the device count and the spec's exec "
+                         "policy; ensemble catalog entries force their own "
+                         "driver)")
     p5.add_argument("--max-windows", type=int, default=10_000, metavar="W",
                     help="per-attempt window budget (default 10000)")
     p5.add_argument("--checkpoint-dir", default=None, metavar="DIR",
@@ -485,7 +646,8 @@ def main(argv=None):
                          "nonzero on any mismatch")
     _device_arg(p5)
     args = ap.parse_args(argv)
-    return dict(t0t1=run_t0t1, workload=run_workload, ensemble=run_ensemble,
+    return dict(t0t1=run_t0t1, workload=run_workload,
+                distributed=run_distributed, ensemble=run_ensemble,
                 run=run_catalog)[args.mode](args)
 
 

@@ -6,8 +6,8 @@ tests/test_fleet.py that need one device).
 preemption: an injected probe or a SIGKILL of the process. A resumed run's
 state is byte-identical to the uninterrupted run's, the fleet counters are
 booked on the host only, and the retry cap, the backoff, the device floor
-and the ``fleet.json`` sidecar behave as the reference's. The drivers
-across devices are not ported and refuse loudly, in the API and the CLI.
+and the ``fleet.json`` sidecar behave as the reference's. The lanes across
+devices are tested in test_torch_distributed_fleet.py.
 """
 import json
 import os
@@ -210,22 +210,6 @@ def test_ensemble_driver_and_catalog_entry():
         f"[run] ensemble_farm driver=ensemble devices=1 attempts=1 "
         f"events={int(out.counters[..., mon.C_EVENTS].sum())} "
         f"windows={int(out.windows[0, 0])} preempt=0 resume=0 reshard=0"]
-
-
-def test_distributed_drivers_refused(tmp_path):
-    built = build(2)
-    for driver in ("distributed", "distributed_adaptive"):
-        with pytest.raises(FleetError, match="not ported yet"):
-            Orchestrator(FleetPolicy(driver=driver,
-                                     checkpoint_dir=str(tmp_path))).run(
-                built, devices=CPU)
-    with pytest.raises(FleetError, match="not ported yet"):
-        Orchestrator(FleetPolicy(checkpoint_dir=str(tmp_path))).run(
-            built, devices=CPU * 2)
-    assert not os.path.exists(tmp_path / "fleet.json")   # nothing ran
-    for argv in (["--devices", "2"], ["--driver", "distributed"]):
-        with pytest.raises((SystemExit, FleetError), match="not ported yet"):
-            simulate.main(["run", "t0t1", "--device", "cpu", *argv])
 
 
 def test_sigkill_lane_through_the_cli(tmp_path):
