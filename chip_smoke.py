@@ -62,11 +62,16 @@ results when they need them. Phases, each of which raises on failure:
    hymba's SSD (4 x 25 heads, state 16, head 64; bfloat16 through its
    tensor-core kernel over 16-column slices), both also at S 1000 (the
    divisor rule's chunk 50), ``ssd_scan`` also at state 64 and at state 24
-   with head 40, and refusing a q that is not 16-byte aligned; then each
+   with head 40, and refusing a q that is not 16-byte aligned; flash
+   attention also at the shapes of the moe, vlm and encdec families
+   (whisper's encoder: non-causal, 4 x 20 heads of 64, 1,500 frames; its
+   cross-attention: 4 queries over the 1,500 frames; moonshot's prefill:
+   4 x 16 heads of 128, S 2048, causal); then each
    timed (CUDA events and device time) against the
    plain version, the bound and, for attention,
    ``scaled_dot_product_attention`` with the same mask, with the achieved
-   TFLOP/s and share of the bound;
+   TFLOP/s and share of the bound (attention at hymba's shape and at the
+   three family shapes);
 4. the stitched main path at real size: the ``tiered_grid`` scenario
    (WLCG's tier shape: one Tier-0, 13 Tier-1, 4 Tier-2 per Tier-1; 8
    agents, pool_cap 4096) through ``Engine.run_local`` on the card, with
@@ -151,11 +156,21 @@ results when they need them. Phases, each of which raises on failure:
    run t0t1 --devices 2`` preempted to one survivor (``reshard=1``). It
    prints ms a window, events/s and host reads a window at each D beside
    ``run_local``'s, and the launches of each kernel;
-4z. the model path at full width and 2 layers: hymba-1.5b (B 2, S 2048) and
-   rwkv6-7b (B 2, S 1024) in float32 with TF32 off, one set of random
-   weights on the card (the kernels) and on the CPU (the plain versions):
-   prefill logits, the decode state and four teacher-forced decode steps'
-   logits agree; each kernel of the model launched once per layer;
+4z. the model path at full width and cut depth in float32 with TF32 off,
+   one set of seeded weights (drawn on the CPU in chunks,
+   ``seeded_weights``) on the card (the kernels) and, in the worker
+   processes, on the CPU (the plain versions): hymba-1.5b and rwkv6-7b
+   with 2 layers (B 2, S 2048 and 1024), moonshot-v1-16b-a3b with its
+   dense first layer and one MoE layer (B 2, S 1024), whisper-large-v3
+   with 2 encoder and 2 decoder layers (B 2, 1,500 frames, 64 decoder
+   tokens; the encoder's non-causal attention and the decoder's
+   cross-attention through the kernel) and qwen2-vl-72b with one layer
+   (B 1, S 512, 256 patch embeddings over a 16 x 16 grid of
+   ``positions3``): prefill logits, four teacher-forced decode steps'
+   logits and the whole state (``kv``, ``kv_first``, ``cross``, ``rnn``)
+   agree, and each zoo kernel launched as ``zoo_launches`` says (once a
+   layer; encdec: ``flash_attention`` once an encoder layer, twice a
+   decoder layer);
 4s. the serve path at full width and depth: ``ServeEngine`` on the card in
    bfloat16 with random weights, hymba-1.5b then rwkv6-7b, 4 requests of
    2048 tokens in 4 slots, 16 new tokens each: 32 launches of
@@ -164,11 +179,18 @@ results when they need them. Phases, each of which raises on failure:
    request done; prefill seconds, decode ms per tick, tokens per second
    and peak memory; then a second admit and three ticks under
    torch.profiler (device busy share, the costliest device ops and the
-   port's kernels);
+   port's kernels); then moonshot-v1-16b-a3b whole (27.6 B params, 48
+   launches an admit, profiled the same way with the MoE's dispatch,
+   experts and combine timed by their labels) and qwen2-vl-72b at full
+   width cut to 20 of its 80 layers (20 launches), both through
+   ``ServeEngine``, and whisper-large-v3 whole through ``prefill_fn`` and
+   ``decode_fn`` (4 x 1,500 frames, 4 decoder prompt tokens, 16 greedy
+   tokens; 96 launches);
 5z. the serve entry point, ``repro_torch.launch.serve --arch hymba-1.5b``
    (smoke config) on the card and on the CPU with the same request and
-   token counts, then ``--full --prompt-len 2048`` on the card for both
-   arches;
+   token counts, the same for moonshot-v1-16b-a3b and mixtral-8x22b,
+   then ``--full --prompt-len 2048`` on the card for hymba-1.5b, rwkv6-7b
+   and moonshot-v1-16b-a3b;
 6. a JSON line of the kernels, then the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -1466,6 +1488,8 @@ def _cpu_job(job: str):
         out = state_to_numpy(Engine(*_cpu_built(kind), trace_cap=1024,
                                     device="cpu").run_distributed(
             ["cpu"] * 2))
+    elif kind == "zoo":
+        out = zoo_run(what, "cpu")
     elif kind == "cli":
         from repro_torch.launch import simulate
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1481,7 +1505,9 @@ CPU_JOBS = ("tiered cpu", "tiered oracle", "workload cpu", "cache cpu",
             "ensemble oracle", "cut cpu", "cli ensemble",
             "cli run ensemble_farm", "grid64 cpu",
             f"cli distributed --devices {DIST_D}",
-            *(f"cli t0t1 {' '.join(flags)}" for flags in T0T1_RUNS.values()))
+            *(f"cli t0t1 {' '.join(flags)}" for flags in T0T1_RUNS.values()),
+            "zoo hymba-1.5b", "zoo rwkv6-7b", "zoo moonshot-v1-16b-a3b",
+            "zoo whisper-large-v3", "zoo qwen2-vl-72b")
 
 
 class Background:
@@ -3038,6 +3064,16 @@ def gla_flops(s: int, c: int, dk: int, dv: int, mode: str,
     return per_chunk * (s // c)
 
 
+# flash attention at the shapes the moe, vlm and encdec families give it,
+# (B, H, KV, Sq, Skv, D, causal, window) at the serve batch: whisper's
+# encoder (non-causal over its 1,500 frames), its cross-attention (4
+# decoder tokens over the 1,500 frames) and moonshot's prefill (D 128,
+# group 1, S 2048); checked in both dtypes, timed in bfloat16
+FA_FAMILY_SHAPES = {
+    "whisper encoder": (4, 20, 20, 1500, 1500, 64, False, 0),
+    "whisper cross": (4, 20, 20, 4, 1500, 64, False, 0),
+    "moonshot prefill": (4, 16, 16, 2048, 2048, 128, True, 0)}
+
 # the kernel each (mode, dtype) runs: bf16 on the tensor cores, float32
 # gla_kernel
 GLA_KERNEL = {("k", "bfloat16"): "rwkv6_tc_kernel",
@@ -3080,7 +3116,7 @@ def phase_zoo_kernels() -> dict:
         (2, 25, 5, 300, 1000, 64, True, 0),
         (2, 25, 5, 1000, 300, 64, True, 100),
         (1, 10, 2, 130, 700, 128, True, 100),
-        (1, 9, 3, 700, 130, 32, True, 0)]
+        (1, 9, 3, 700, 130, 32, True, 0)] + list(FA_FAMILY_SHAPES.values())
     fa_kernel = {"float32": "FFMA kernel", "bfloat16": "wgmma kernel"}
     main_fa = None
     cross_err = {"float32": 0.0, "bfloat16": 0.0}
@@ -3179,6 +3215,21 @@ def phase_zoo_kernels() -> dict:
                    + 4 * bh * dk * dv),
             ops=bh * gla_flops(S, chunk, dk, dv, mode, 2 if tc else 1),
             rate=TF32_OPS_PER_S if tc else FP32_OPS_PER_S, kernel=kernel)
+    for label, (B, H, KV, S, skv, D, causal, win) in FA_FAMILY_SHAPES.items():
+        q, k, v = (rn(B * h, n, D, dtype=torch.bfloat16) for h, n in
+                   ((H, S), (KV, skv), (KV, skv)))
+        q4, k4, v4 = (x.view(B, x.shape[0] // B, x.shape[1], D)
+                      for x in (q, k, v))
+        rows[f"flash_attention {label}"] = dict(
+            fn=lambda a=(q, k, v, causal): fa.flash_attention(
+                *a[:3], causal=a[3]),
+            plain=lambda a=(q, k, v, causal): ref.attention(*a[:3],
+                                                            causal=a[3]),
+            lib=lambda a=(q4, k4, v4, causal): F.scaled_dot_product_attention(
+                *a[:3], is_causal=a[3]),
+            bytes=2 * (q.numel() * 2 + k.numel() + v.numel()),
+            ops=4 * D * B * H * attention_pairs(S, skv, causal, win),
+            rate=BF16_OPS_PER_S, kernel="fa_wgmma_kernel", json=False)
     for name, r in rows.items():
         ms = cuda_ms(r["fn"], iters=50)
         dev_ms = device_ms(r["fn"], r["kernel"])
@@ -3186,9 +3237,11 @@ def phase_zoo_kernels() -> dict:
         lib_ms = cuda_ms(r["lib"], iters=50) if r["lib"] is not None else None
         bms, by = bound(r["bytes"], r["ops"], r["rate"])
         tflops, peak = r["ops"] / ms / 1e9, r["rate"] / 1e12
-        out[name] = dict(max_abs_err=err[name], ms=ms, device_ms=dev_ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                         bound_by=by)
+        # the family shapes are printed; the kernels line takes the main ones
+        if r.get("json", True):
+            out[name] = dict(max_abs_err=err[name], ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bms, bound_by=by)
         print(f"[zoo kernels] {name}: kernel {ms:.6f} ms (device "
               f"{dev_ms:.6f} ms), plain {plain_ms:.6f} ms, library "
               f"{lib_ms if lib_ms is None else f'{lib_ms:.6f}'} ms, bound "
@@ -3232,100 +3285,20 @@ def ssd_refuses_unaligned(gla, args) -> None:
           flush=True)
 
 
-# --------------------------------------------------------------- phase 4z
-ZOO_MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
-
-
-def state_close(label: str, got: dict, want: dict) -> float:
-    """The decode states of two models (the card's and the CPU's): every
-    KV cache and recurrent state within ``ZOO_MODEL_TOL``."""
-    worst = 0.0
-    if (got["kv"] is None) != (want["kv"] is None):
-        raise AssertionError(f"{label}: KV caches differ in presence")
-    if got["kv"] is not None:
-        for f in ("k", "v", "length"):
-            worst = max(worst, zoo_close(f"{label} kv.{f}",
-                                         getattr(got["kv"], f).cpu(),
-                                         getattr(want["kv"], f),
-                                         ZOO_MODEL_TOL))
-    for f in sorted(want["rnn"] or {}):
-        worst = max(worst, zoo_close(f"{label} rnn.{f}", got["rnn"][f].cpu(),
-                                     want["rnn"][f], ZOO_MODEL_TOL))
-    return worst
-
-
-def phase_model_path(card: str) -> dict:
-    """hymba-1.5b and rwkv6-7b at full width and 2 layers in float32: the
-    card (kernels) against the CPU (plain versions), one set of weights."""
-    import dataclasses
-    import torch
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models.model import build_model
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    new = {"hymba-1.5b": ("flash_attention", "ssd_scan"),
-           "rwkv6-7b": ("rwkv6_scan",)}
-    result = {}
-    try:
-        for arch, B, S in (("hymba-1.5b", 2, 2048), ("rwkv6-7b", 2, 1024)):
-            cfg = dataclasses.replace(get_config(arch), n_layers=2,
-                                      dtype="float32")
-            t0 = time.perf_counter()
-            cpu = build_model(cfg, device="cpu").init(
-                torch.Generator().manual_seed(0))
-            gpu = build_model(cfg, device="cuda")
-            gpu.load_state_dict(cpu.state_dict())
-            g = torch.Generator().manual_seed(1)
-            toks = torch.randint(0, cfg.vocab, (B, S), generator=g)
-            steps = torch.randint(0, cfg.vocab, (4, B, 1), generator=g)
-            torch.cuda.synchronize()
-            reset_launches()
-            got, gstate = gpu.prefill_fn({"tokens": toks.cuda()})
-            torch.cuda.synchronize()
-            ran = launches()
-            want, wstate = cpu.prefill_fn({"tokens": toks})
-            e = zoo_close(f"{arch} prefill logits", got.cpu(), want,
-                          ZOO_MODEL_TOL)
-            es = state_close(f"{arch} prefill state", gstate, wstate)
-            for k in new[arch]:
-                if ran[k] != cfg.n_layers:
-                    raise AssertionError(f"{arch}: {k} launched {ran[k]} "
-                                         f"times for {cfg.n_layers} layers")
-            ed = 0.0
-            for i in range(4):
-                got, gstate = gpu.decode_fn(gstate, steps[i].cuda(), S + i)
-                want, wstate = cpu.decode_fn(wstate, steps[i], S + i)
-                ed = max(ed, zoo_close(f"{arch} decode step {i} logits",
-                                       got.cpu(), want, ZOO_MODEL_TOL))
-            es = max(es, state_close(f"{arch} decode state", gstate, wstate))
-            print(f"[zoo model] {arch} d={cfg.d_model} 2 layers B={B} S={S} "
-                  f"float32: card == cpu within {ZOO_MODEL_TOL}: prefill "
-                  f"logits max abs err {e:.3e}, 4 teacher-forced decode "
-                  f"steps {ed:.3e}, states {es:.3e}; launches "
-                  f"{ {k: ran[k] for k in new[arch]} } "
-                  f"({time.perf_counter() - t0:.1f} s, {card})", flush=True)
-            result[arch] = {k: ran[k] for k in new[arch]}
-            del cpu, gpu, gstate, wstate
-            torch.cuda.empty_cache()
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
-    return result
-
-
 # --------------------------------------------------------------- phase 4s
-def serve_full(arch: str, card: str) -> dict:
-    """``ServeEngine`` at full width and depth in bfloat16 on the card: 4
-    requests of 2048 random tokens in 4 slots, 16 new tokens each."""
+def serve_full(arch: str, card: str, profile: bool = True, **cut) -> dict:
+    """``ServeEngine`` at full width in bfloat16 on the card, at full depth
+    unless ``cut`` (say ``n_layers=20``) cuts it: 4 requests of 2048 random
+    tokens in 4 slots, 16 new tokens each; then, if ``profile``, a profiled
+    admit and three ticks."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     slots, prompt, max_new = 4, 2048, 16
-    cfg = dataclasses.replace(get_config(arch), cache_headroom=max_new)
+    cfg = dataclasses.replace(get_config(arch), cache_headroom=max_new,
+                              **cut)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda").init(
@@ -3349,6 +3322,7 @@ def serve_full(arch: str, card: str) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     ran = launches()
+    check_launches(f"{arch} admit", ran, cfg)
     finite("the admit")
     tick_s = []
     while not all(r.done for r in reqs):
@@ -3366,9 +3340,10 @@ def serve_full(arch: str, card: str) -> dict:
                                             for t in r.out):
             raise AssertionError(f"{arch} request {r.rid}: {r.out}")
     peak = torch.cuda.max_memory_allocated()
-    profile_serve(eng, lambda: [Request(rid=r.rid, tokens=r.tokens,
-                                        max_new=max_new) for r in reqs],
-                  arch, card)
+    if profile:
+        profile_serve(eng, lambda: [Request(rid=r.rid, tokens=r.tokens,
+                                            max_new=max_new) for r in reqs],
+                      arch, card)
     nums = dict(params=n_params, init_s=init_s, prefill_s=prefill_s,
                 decode_ms_per_tick=decode_s / ticks * 1e3, ticks=ticks,
                 first_tick_ms=tick_s[0] * 1e3,
@@ -3377,7 +3352,8 @@ def serve_full(arch: str, card: str) -> dict:
                 decode_tokens_per_s=slots * ticks / decode_s,
                 prompt_tokens_per_s=slots * prompt / prefill_s,
                 peak_gib=peak / 2**30, admit_launches=ran)
-    print(f"[serve] {arch} full width and depth ({n_params} params, "
+    depth = (f"depth cut to {cut}" if cut else "full depth")
+    print(f"[serve] {arch} full width, {depth} ({n_params} params, "
           f"bfloat16): {slots} requests x {prompt} prompt tokens, "
           f"{max_new} new each: prefill {prefill_s:.3f} s "
           f"({nums['prompt_tokens_per_s']:.1f} prompt tok/s), decode "
@@ -3418,12 +3394,17 @@ def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the device timeline's mirrors of the moe.* ranges are spans, not
+        # work: left out
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("moe.")]
         if not kern:
             raise AssertionError(f"{arch} {label}: the profile holds no "
                                  f"device op")
         busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        top = sorted(prof.key_averages(), key=self_device_us, reverse=True)
+        top = sorted((e for e in prof.key_averages()
+                      if not e.key.startswith("moe.")),
+                     key=self_device_us, reverse=True)
         print(f"[profile serve] {arch} {label}: wall {wall_ms:.3f} ms "
               f"profiled, {len(kern)} device ops, device busy "
               f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.4f} of the wall "
@@ -3441,38 +3422,372 @@ def profile_serve(eng, make_reqs, arch: str, card: str) -> None:
                   f"{self_device_us(e) / 1e3 / busy_ms:.4f} of the device "
                   f"time, {self_device_us(e) / 1e3 / wall_ms:.4f} of the "
                   f"wall", flush=True)
+        for stage, (host_ms, dev_ms, n_ops, calls) in moe_stages(
+                prof).items():
+            print(f"[profile serve] {arch} {label}: {stage}: {calls} calls, "
+                  f"host {host_ms:.3f} ms, device {dev_ms:.3f} ms in "
+                  f"{n_ops} ops = {dev_ms / busy_ms:.4f} of the device time",
+                  flush=True)
+
+
+def moe_stages(prof) -> dict:
+    """Each ``moe.*`` label of a profile (dispatch, experts, combine):
+    host ms in its ranges, and the device ms and count of the device ops
+    that start inside its mirrored spans on the device's timeline."""
+    import bisect
+    from torch.autograd import DeviceType
+    evs = list(prof.profiler.kineto_results.events())
+    ops = sorted((e.start_ns(), e.duration_ns()) for e in device_ops(prof))
+    starts = [t for t, _ in ops]
+    out: dict = {}
+    for e in evs:
+        if not e.name().startswith("moe."):
+            continue
+        host, dev, n, calls = out.get(e.name(), (0.0, 0.0, 0, 0))
+        if e.device_type() == DeviceType.CUDA:
+            lo = bisect.bisect_left(starts, e.start_ns())
+            hi = bisect.bisect_right(starts, e.end_ns())
+            dev += sum(d for _, d in ops[lo:hi]) / 1e6
+            n += hi - lo
+        else:
+            host += e.duration_ns() / 1e6
+            calls += 1
+        out[e.name()] = (host, dev, n, calls)
+    return out
+
+
+# phase 4s's qwen2-vl-72b: full width, 20 of its 80 layers (145 GB whole)
+VLM_SERVE_LAYERS = 20
 
 
 def phase_serve(card: str) -> dict:
+    return {arch: serve_full(arch, card) for arch in ("hymba-1.5b",
+                                                       "rwkv6-7b")}
+
+
+def phase_serve_families(card: str) -> dict:
+    """Phase 4s for the moe, vlm and encdec families: moonshot whole (a
+    profiled admit and three ticks), qwen2-vl at full width cut to
+    ``VLM_SERVE_LAYERS`` layers, both through ``ServeEngine``; whisper
+    whole through ``prefill_fn``/``decode_fn``."""
     runs = {}
-    for arch, want in (("hymba-1.5b", {"flash_attention": 32, "ssd_scan": 32,
-                                       "rwkv6_scan": 0}),
-                       ("rwkv6-7b", {"flash_attention": 0, "ssd_scan": 0,
-                                     "rwkv6_scan": 32})):
-        runs[arch] = serve_full(arch, card)
-        got = {k: runs[arch]["admit_launches"][k] for k in want}
-        if got != want:
-            raise AssertionError(f"{arch} admit launches {got}, want {want}")
+    for arch, cut, profile in (
+            ("moonshot-v1-16b-a3b", {}, True),
+            ("qwen2-vl-72b", dict(n_layers=VLM_SERVE_LAYERS), False)):
+        t0 = time.perf_counter()
+        runs[arch] = serve_full(arch, card, profile, **cut)
+        print(f"[time] 4s {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    runs["whisper-large-v3"] = serve_encdec(card)
+    print(f"[time] 4s whisper-large-v3: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return runs
+
+
+# ------------------------------------------------ phases 4z, 4s: the families
+# Phase 4z's full-width cuts of the model zoo's families in float32: (depth,
+# batch, the inputs); the CPU side runs in the worker processes
+# (``_cpu_job("zoo <arch>")``) on the same weights and inputs.
+ZOO_FAMILIES = {
+    # hybrid: attention beside the SSD scan in each layer
+    "hymba-1.5b": dict(cut=dict(n_layers=2), B=2, S=2048),
+    # ssm: the rwkv6 scan in each layer
+    "rwkv6-7b": dict(cut=dict(n_layers=2), B=2, S=1024),
+    # the leading dense layer and one MoE layer (64 experts, top 6)
+    "moonshot-v1-16b-a3b": dict(cut=dict(n_layers=2), B=2, S=1024),
+    # 2 encoder and 2 decoder layers over 1,500 frames, 64 decoder tokens
+    "whisper-large-v3": dict(cut=dict(n_layers=2, encoder_layers=2), B=2,
+                             S=64, frames=1500),
+    # one layer; 256 patch slots of a 16 x 16 grid, then text
+    "qwen2-vl-72b": dict(cut=dict(n_layers=1), B=1, S=512, patches=16),
+}
+ZOO_STEPS = 4
+ZOO_MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
+ZOO_KERNELS = ("flash_attention", "ssd_scan", "rwkv6_scan")
+# values a generator draws (phase 4z's weights), so any number of threads
+# draws the same weights
+WEIGHT_CHUNK = 1 << 24
+
+
+def zoo_cfg(arch: str, **over):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def seeded_weights(model, seed: int, threads: int = 1):
+    """Phase 4z's weights, drawn on the CPU in float32 in the model's own
+    scales and fills (``Model._rules``): each chunk of ``WEIGHT_CHUNK``
+    values of parameter i from its own generator, seeded from (seed, i,
+    chunk), so the card's model (copied chunk by chunk) and the worker's
+    get the same weights whatever the threads."""
+    import concurrent.futures
+    import torch
+
+    def draw(job):
+        i, j, n, scale = job
+        g = torch.Generator().manual_seed((seed << 40) + (i << 20) + j)
+        return torch.empty(n).normal_(generator=g).mul_(scale)
+
+    jobs, dests = [], []
+    with torch.no_grad():
+        for i, (name, p) in enumerate(model.named_parameters()):
+            kind, value = model._rules[name]
+            if kind == "fill":
+                p.fill_(value)
+                continue
+            flat = p.view(-1)
+            for j, lo in enumerate(range(0, flat.numel(), WEIGHT_CHUNK)):
+                n = min(WEIGHT_CHUNK, flat.numel() - lo)
+                jobs.append((i, j, n, value))
+                dests.append(flat[lo:lo + n])
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            for dest, vals in zip(dests, pool.map(draw, jobs)):
+                dest.copy_(vals)
+    return model
+
+
+def zoo_inputs(arch: str, cfg) -> tuple[dict, list]:
+    """Phase 4z's prefill batch (CPU tensors) and teacher-forced decode
+    tokens, from seed 1."""
+    import torch
+    spec = ZOO_FAMILIES[arch]
+    g = torch.Generator().manual_seed(1)
+    B, S = spec["B"], spec["S"]
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g)}
+    if "frames" in spec:
+        batch["frames"] = torch.randn(B, spec["frames"], cfg.d_model,
+                                      generator=g)
+    if "patches" in spec:
+        side = spec["patches"]
+        n = side * side
+        i = torch.arange(S)
+        text = side + i - n
+        pos = torch.stack([torch.where(i < n, 0, text),
+                           torch.where(i < n, i // side, text),
+                           torch.where(i < n, i % side, text)])
+        batch["positions3"] = pos[:, None].expand(3, B, S).contiguous()
+        batch["patch_embeds"] = torch.randn(B, n, cfg.d_model, generator=g)
+    steps = [torch.randint(0, cfg.vocab, (B, 1), generator=g)
+             for _ in range(ZOO_STEPS)]
+    return batch, steps
+
+
+def state_arrays(state: dict) -> dict:
+    """A decode state as {name: numpy array}: each KV cache's k, v and
+    length, the cross K/V, the recurrent states."""
+    out = {}
+    for key, val in state.items():
+        if val is None:
+            continue
+        if isinstance(val, dict):
+            items = val.items()
+        elif hasattr(val, "_fields"):
+            items = val._asdict().items()
+        else:
+            items = enumerate(val)
+        for name, t in items:
+            # a copy: the state is updated in place by the decode steps
+            out[f"{key}.{name}"] = t.detach().cpu().clone().numpy()
+    return out
+
+
+def zoo_run(arch: str, device: str, threads: int = 1) -> dict:
+    """Phase 4z's run of one family's cut in float32 on ``device``: prefill
+    logits, the state after it, four teacher-forced decode steps' logits
+    and the state after them, as numpy; on the card also the launches of
+    the prefill and the seconds."""
+    import torch
+    from repro_torch.models.model import build_model
+    spec = ZOO_FAMILIES[arch]
+    cfg = zoo_cfg(arch, dtype="float32", cache_headroom=ZOO_STEPS,
+                  **spec["cut"])
+    t0 = time.perf_counter()
+    model = seeded_weights(build_model(cfg, device=device), 0, threads)
+    batch, steps = zoo_inputs(arch, cfg)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    if device != "cpu":
+        torch.cuda.synchronize()
+        reset_launches()
+    logits, st = model.prefill_fn(batch)
+    out = dict(prefill=logits.cpu().numpy(), state=state_arrays(st))
+    if device != "cpu":
+        torch.cuda.synchronize()
+        out["launches"] = launches()
+    out["decode"] = []
+    for i, tok in enumerate(steps):
+        logits, st = model.decode_fn(st, tok.to(device), spec["S"] + i)
+        out["decode"].append(logits.cpu().numpy())
+    out["final_state"] = state_arrays(st)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def zoo_launches(cfg) -> dict:
+    """Each zoo kernel's launches in a prefill: ``flash_attention`` once an
+    attention layer (encdec: once an encoder layer and twice a decoder
+    layer, self and cross), ``ssd_scan`` once a hybrid layer,
+    ``rwkv6_scan`` once an ssm layer."""
+    n = cfg.n_layers
+    fa = {"ssm": 0, "encdec": cfg.encoder_layers + 2 * n}.get(cfg.family, n)
+    return {"flash_attention": fa,
+            "ssd_scan": n if cfg.family == "hybrid" else 0,
+            "rwkv6_scan": n if cfg.family == "ssm" else 0}
+
+
+def check_launches(label: str, ran: dict, cfg) -> dict:
+    """The zoo kernels' launches in ``ran``, raising unless they are
+    ``zoo_launches(cfg)``."""
+    got = {k: ran[k] for k in ZOO_KERNELS}
+    if got != zoo_launches(cfg):
+        raise AssertionError(f"{label}: launches {got}, want "
+                             f"{zoo_launches(cfg)}")
+    return got
+
+
+def phase_zoo_families(card: str, bg) -> dict:
+    """The hybrid, ssm, moe, encdec and vlm families at full width and cut
+    depth in float32 with TF32 off: the card (kernels) against the CPU run
+    of the worker processes (plain versions), one set of weights."""
+    import torch
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {}
+    try:
+        for arch, spec in ZOO_FAMILIES.items():
+            cfg = zoo_cfg(arch, **spec["cut"])
+            got = zoo_run(arch, "cuda", threads=8)
+            torch.cuda.empty_cache()
+            want = bg.get(f"zoo {arch}")
+            e = zoo_close(f"{arch} prefill logits",
+                          torch.from_numpy(got["prefill"]),
+                          torch.from_numpy(want["prefill"]), ZOO_MODEL_TOL)
+            ed = max(zoo_close(f"{arch} decode step {i} logits",
+                               torch.from_numpy(a), torch.from_numpy(b),
+                               ZOO_MODEL_TOL)
+                     for i, (a, b) in enumerate(zip(got["decode"],
+                                                    want["decode"])))
+            es = 0.0
+            for key in ("state", "final_state"):
+                if sorted(got[key]) != sorted(want[key]):
+                    raise AssertionError(f"{arch} {key}: {sorted(got[key])}"
+                                         f" vs {sorted(want[key])}")
+                for name in got[key]:
+                    es = max(es, zoo_close(
+                        f"{arch} {key} {name}",
+                        torch.from_numpy(got[key][name]),
+                        torch.from_numpy(want[key][name]), ZOO_MODEL_TOL))
+            ran = check_launches(f"{arch} prefill", got["launches"], cfg)
+            print(f"[zoo model] {arch} d={cfg.d_model} {spec['cut']} "
+                  f"B={spec['B']} S={spec['S']} float32: card == cpu within "
+                  f"{ZOO_MODEL_TOL}: prefill logits max abs err {e:.3e}, "
+                  f"{ZOO_STEPS} teacher-forced decode steps {ed:.3e}, "
+                  f"states ({', '.join(sorted(got['final_state']))}) "
+                  f"{es:.3e}; launches {ran}; card "
+                  f"{got['seconds']:.1f} s, cpu worker "
+                  f"{want['seconds']:.1f} s ({card})", flush=True)
+            result[arch] = ran
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return result
+
+
+def serve_encdec(card: str) -> dict:
+    """whisper-large-v3 whole in bfloat16 on the card through ``prefill_fn``
+    and ``decode_fn``, as the reference's tests drive it: 4 streams of
+    1,500 frames and 4 decoder prompt tokens, 16 greedy tokens each."""
+    import torch
+    from repro_torch.models.model import build_model
+    arch, B, n_frames, prompt, max_new = "whisper-large-v3", 4, 1500, 4, 16
+    cfg = zoo_cfg(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn(B, n_frames, cfg.d_model, generator=g,
+                         device="cuda")
+    toks = torch.randint(1, cfg.vocab, (B, prompt), generator=g,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, st = model.prefill_fn({"frames": frames, "tokens": toks})
+    nxt = torch.argmax(logits, dim=-1)
+    out = [nxt.tolist()]
+    prefill_s = time.perf_counter() - t0
+    ran = launches()
+    tick_s = []
+    for i in range(max_new - 1):
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: a logit is not finite at step {i}")
+        t0 = time.perf_counter()
+        logits, st = model.decode_fn(st, nxt[:, None], prompt + i)
+        nxt = torch.argmax(logits, dim=-1)
+        out.append(nxt.tolist())
+        tick_s.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: a logit is not finite at the end")
+    streams = [[step[b] for step in out] for b in range(B)]
+    if any(len(s) != max_new or not all(0 <= t < cfg.vocab for t in s)
+           for s in streams):
+        raise AssertionError(f"{arch}: {streams}")
+    check_launches(f"{arch} prefill", ran, cfg)
+    decode_s = sum(tick_s)
+    nums = dict(params=n_params, init_s=init_s, prefill_s=prefill_s,
+                frames_per_s=B * n_frames / prefill_s,
+                decode_ms_per_tick=decode_s / len(tick_s) * 1e3,
+                decode_tokens_per_s=B * len(tick_s) / decode_s,
+                tokens=B * max_new,
+                tokens_per_s=B * max_new / (prefill_s + decode_s),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                admit_launches=ran)
+    print(f"[serve] {arch} whole ({n_params} params, bfloat16, "
+          f"{cfg.encoder_layers} + {cfg.n_layers} layers): {B} streams x "
+          f"{n_frames} frames + {prompt} decoder tokens, {max_new} greedy "
+          f"tokens each: prefill {prefill_s:.3f} s "
+          f"({nums['frames_per_s']:.1f} frames/s), decode "
+          f"{nums['decode_ms_per_tick']:.3f} ms per tick over {len(tick_s)} "
+          f"ticks ({nums['decode_tokens_per_s']:.1f} tok/s), "
+          f"{nums['tokens']} tokens in {prefill_s + decode_s:.3f} s "
+          f"({nums['tokens_per_s']:.1f} tok/s), peak memory "
+          f"{nums['peak_gib']:.3f} GiB, weights drawn in {init_s:.2f} s; "
+          f"prefill launches {ran} ({card})", flush=True)
+    del model, st
+    torch.cuda.empty_cache()
+    return nums
 
 
 # --------------------------------------------------------------- phase 5z
 def phase_serve_entry() -> None:
+    """``launch.serve``'s smoke configs on the card and on the CPU (the same
+    request and token counts, each kernel of the path launched), then
+    ``--full --prompt-len 2048`` on the card."""
     import torch
     from repro_torch.launch import serve
-    reset_launches()
-    got = serve.main(["--arch", "hymba-1.5b", "--device", "cuda"])
-    ran = launches()
-    want = serve.main(["--arch", "hymba-1.5b", "--device", "cpu"])
     keys = ("done", "requests", "tokens")
-    if [got[k] for k in keys] != [want[k] for k in keys]:
-        raise AssertionError(f"serve hymba-1.5b: cuda {got} != cpu {want}")
-    for k in ("flash_attention", "ssd_scan"):
-        if ran[k] == 0:
-            raise AssertionError(f"serve --device cuda never launched {k}")
-    print(f"[serve entry] hymba-1.5b smoke: cuda == cpu "
-          f"({[got[k] for k in keys]}; launches {ran})", flush=True)
-    for arch in ("hymba-1.5b", "rwkv6-7b"):
+    for arch, kernels in (("hymba-1.5b", ("flash_attention", "ssd_scan")),
+                          ("moonshot-v1-16b-a3b", ("flash_attention",)),
+                          ("mixtral-8x22b", ("flash_attention",))):
+        reset_launches()
+        got = serve.main(["--arch", arch, "--device", "cuda"])
+        ran = launches()
+        want = serve.main(["--arch", arch, "--device", "cpu"])
+        if [got[k] for k in keys] != [want[k] for k in keys]:
+            raise AssertionError(f"serve {arch}: cuda {got} != cpu {want}")
+        for k in kernels:
+            if ran[k] == 0:
+                raise AssertionError(f"serve {arch} --device cuda never "
+                                     f"launched {k}")
+        print(f"[serve entry] {arch} smoke: cuda == cpu "
+              f"({[got[k] for k in keys]}; launches {ran})", flush=True)
+    for arch in ("hymba-1.5b", "rwkv6-7b", "moonshot-v1-16b-a3b"):
         got = serve.main(["--arch", arch, "--full", "--prompt-len", "2048",
                           "--device", "cuda"])
         if got["done"] != got["requests"]:
@@ -3568,8 +3883,9 @@ def run_phases(card: str, es, ref, bg: Background) -> int:
           scen["failures"]["stitched"], bg)
     timed("phase 4f", phase_host_layer, card, main_run)
     timed("phase 4h", phase_distributed, card, main_run, bg)
-    timed("phase 4z", phase_model_path, card)
+    timed("phase 4z", phase_zoo_families, card, bg)
     served = timed("phase 4s", phase_serve, card)
+    timed("phase 4s families", phase_serve_families, card)
     timed("phase 5z", phase_serve_entry)
 
     # launches on each kernel's own path: the stitched run for the four

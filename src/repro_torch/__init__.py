@@ -6,7 +6,8 @@ and function names so every counterpart is easy to find. The JAX vmap agent
 axis is an explicit leading tensor dimension ``A``, collectives are
 reductions and transposes over it, and the window loop is stepped from the
 host. The model zoo (``configs/``, ``models/``, ``serve/``,
-``launch/serve.py``) serves the dense, hybrid and ssm families. Every
+``launch/serve.py``) serves all six families (dense, moe, hybrid, ssm,
+vlm, encdec). Every
 Pallas kernel of the reference is a hand-written CUDA kernel for Hopper
 (``kernels/csrc/``: the six window front-end kernels in
 ``event_select.cu``, the max-min water-fill in ``bandwidth_share.cu``,

@@ -75,8 +75,9 @@ def state_to_numpy(st: EngineState) -> dict:
 def model_params_from_numpy(cfg, flat: dict, device="cpu") -> dict:
     """The port's parameters (a ``Model.state_dict()``) from the reference
     model's params: ``flat`` maps each tree path joined with ``/`` (for
-    example ``layers/attn/wq``) to a numpy array, the ``layers`` leaves
-    stacked on a leading layer axis. Keys, shapes and dtypes must match the
+    example ``layers/attn/wq``) to a numpy array, the leaves of the layer
+    stacks (``layers``, ``first_layers``, ``encoder``) stacked on a leading
+    layer axis. Keys, shapes and dtypes must match the
     port's ``Model(cfg)``; returns the tensors on ``device``."""
     from repro_torch.models.model import Model
     want = Model(cfg, device="meta").state_dict()
@@ -84,9 +85,9 @@ def model_params_from_numpy(cfg, flat: dict, device="cpu") -> dict:
     for key, arr in flat.items():
         parts = key.split("/")
         t = _t(arr, "cpu")
-        if parts[0] == "layers":
+        if parts[0] in ("layers", "first_layers", "encoder"):
             for i in range(t.shape[0]):
-                out[".".join(["layers", str(i), *parts[1:]])] = t[i]
+                out[".".join([parts[0], str(i), *parts[1:]])] = t[i]
         else:
             out[".".join(parts)] = t
     if set(out) != set(want):

@@ -8,7 +8,8 @@ version. The engine's ``select_fn``/``group_fn``/``trace_fn``/``route_fn``
 hooks default to these functions, ``spec.fused_select`` binds ``fused_fn``
 and ``slot_fn`` to ``fused_select`` and ``ring_slots``, the flow handlers'
 ``core.network.maxmin_rates`` calls ``maxmin_rates``, and the model zoo's
-prefill calls ``flash_attention`` (``models/layers.py``) and ``rwkv6_scan``
+prefill (and whisper's encoder and cross-attention) calls
+``flash_attention`` (``models/layers.py``) and ``rwkv6_scan``
 and ``ssd_scan`` (``models/linear_rnn.py``), so on the card the main paths
 run the kernels.
 """
@@ -151,8 +152,9 @@ def maxmin_rates(inc, bw, active):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (BH, Sq, D), k and v (BKV, Skv, D) -> (BH, Sq, D) causal or
-    sliding-window attention, KV row bh // (BH // BKV) for query row bh."""
+    """q (BH, Sq, D), k and v (BKV, Skv, D) -> (BH, Sq, D) causal,
+    sliding-window or (``causal=False``) full attention, KV row bh // (BH
+    // BKV) for query row bh."""
     if _on_card(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,

@@ -3,11 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --full --prompt-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --device cpu
 
 The flags of ``repro.launch.serve``, plus ``--device`` (the CUDA card
 unless ``--device cpu``) and ``--seed`` (the random weights and prompts).
 The weights are random, drawn at the config's shapes on the device; the
 prompts are 12 random tokens each. Prints the ``[serve] ... tok/s`` line.
+As in the reference, the engine passes tokens only: an encdec model
+(whisper) needs its ``frames`` and is driven through ``Model.prefill_fn``
+and ``decode_fn`` instead.
 """
 from __future__ import annotations
 

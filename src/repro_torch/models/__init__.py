@@ -1,1 +1,1 @@
-"""The model zoo's serving path in PyTorch (``dense``, ``hybrid``, ``ssm``)."""
+"""The model zoo's serving path in PyTorch (all six families)."""

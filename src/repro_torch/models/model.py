@@ -1,26 +1,32 @@
 """The model zoo's serving model, the counterpart of ``repro.models.model``
-for the families that serve through the same block stack: ``dense``,
-``hybrid`` (hymba: attention and SSD heads side by side) and ``ssm``
-(RWKV6).
+for all six families: ``dense``, ``moe`` (top-k experts, with leading
+dense layers for moonshot), ``hybrid`` (hymba: attention and SSD heads side
+by side), ``ssm`` (RWKV6), ``vlm`` (qwen2-vl: multimodal RoPE, patch
+embeddings written over the first positions) and ``encdec`` (whisper: an
+encoder over the frames, a decoder with cross-attention).
 
 ``Model`` is an ``nn.Module`` that holds its parameters under the
-reference's tree paths (``embed.tok``, ``layers.{i}.attn.wq``, ...; the
-reference stacks the layers on a leading axis, the port keeps one module per
-layer) and exposes
+reference's tree paths (``embed.tok``, ``layers.{i}.attn.wq``,
+``first_layers.{i}...``, ``encoder.{i}...``; the reference stacks the
+layers on a leading axis, the port keeps one module per layer) and exposes
 
   init(generator)                   random weights at the published shapes
   prefill_fn(batch)                 -> (last-token logits (b, vocab) float32,
                                         decode state)
   decode_fn(state, tokens, length)  -> (logits, state)
 
+``batch`` holds ``tokens`` (b, s), and ``frames`` (b, S, d) for encdec,
+optionally ``patch_embeds`` (b, P, d) and ``positions3`` (3, b, s) for vlm.
 The decode state keeps the reference's structure: ``kv``, one ``KVCache``
-whose tensors stack the layers on a leading axis, and ``rnn``, a dict of
-stacked recurrent states (``ssd`` for hybrid; ``S``, ``tm_prev``,
-``cm_prev`` for ssm). Prefill allocates it; each layer writes its slice in
-place, and ``decode_fn`` updates it in place (the reference returns a new
-tree), which saves a copy of the cache per token. The reference's
-``lax.scan`` over layers is a loop over ``layers``. Not ported yet
-(ROADMAP.md): the ``moe``, ``encdec`` and ``vlm`` families and ``loss_fn``.
+whose tensors stack the layers on a leading axis; ``kv_first`` for the
+leading dense layers of a moe model; ``rnn``, a dict of stacked recurrent
+states (``ssd`` for hybrid; ``S``, ``tm_prev``, ``cm_prev`` for ssm); and
+for encdec ``cross``, the stacked cross-attention K and V of the encoder's
+output, in place of ``rnn``. Prefill allocates it; each layer writes its
+slice in place, and ``decode_fn`` updates it in place (the reference
+returns a new tree), which saves a copy of the cache per token. The
+reference's ``lax.scan`` over layers is a loop over the module lists. Not
+ported yet (ROADMAP.md): ``loss_fn``.
 """
 from __future__ import annotations
 
@@ -33,8 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import linear_rnn as R
+from repro_torch.models import moe as M
 
-SERVED_FAMILIES = ("dense", "hybrid", "ssm")
 _F32 = torch.float32
 
 
@@ -60,15 +66,19 @@ def _attention_spec(cfg: ModelConfig, dt):
     return p
 
 
-def _mlp_spec(cfg: ModelConfig, dt):
-    d, f = cfg.d_model, cfg.d_ff
-    return {"wi": _dense((d, f), dt), "wo": _dense((f, d), dt),
-            "wg": _dense((d, f), dt)}
+def _mlp_spec(cfg: ModelConfig, dt, d_ff: int | None = None, gated=True):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi": _dense((d, f), dt), "wo": _dense((f, d), dt)}
+    if gated:
+        p["wg"] = _dense((d, f), dt)
+    return p
 
 
 def _block_spec(cfg: ModelConfig, kind: str) -> dict:
     """One block's leaves: name -> (shape, dtype, init), or a dict of them
-    for a sub-layer; the reference's ``_init_block`` leaf for leaf."""
+    for a sub-layer; the reference's ``_init_block`` leaf for leaf. Kinds:
+    dense, moe, dense_ffn_moe_arch (a moe model's leading dense layers),
+    hybrid, rwkv, enc and dec."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
     dt = L.dtype_of(cfg)
     norm = _fill((d,), 1.0)
@@ -101,12 +111,27 @@ def _block_spec(cfg: ModelConfig, kind: str) -> dict:
                     "dt_bias": _fill((h,), -1.0)}
         p["ln_attn_out"] = norm
         p["ln_ssd_out"] = norm
-    p["mlp"] = _mlp_spec(cfg, dt)
+    if kind == "moe":
+        p["moe"] = M.init_moe(cfg, dt)
+    elif kind == "dense_ffn_moe_arch":
+        p["mlp"] = _mlp_spec(cfg, dt, d_ff=4 * d)
+    elif kind in ("enc", "dec"):
+        zero = _fill((d,), 0.0)
+        if kind == "dec":
+            p["xattn"] = _attention_spec(cfg, dt)
+            p["ln3"] = norm
+            p["lnb3"] = zero
+        p["lnb1"] = zero
+        p["lnb2"] = zero
+        p["mlp"] = _mlp_spec(cfg, dt, gated=False)
+    else:
+        p["mlp"] = _mlp_spec(cfg, dt)
     return p
 
 
 def _block_kind(cfg: ModelConfig) -> str:
-    return {"dense": "dense", "hybrid": "hybrid", "ssm": "rwkv"}[cfg.family]
+    return {"dense": "dense", "vlm": "dense", "moe": "moe",
+            "hybrid": "hybrid", "ssm": "rwkv", "encdec": "dec"}[cfg.family]
 
 
 class _Leaves(nn.Module):
@@ -132,9 +157,10 @@ class _Leaves(nn.Module):
 
 # ================================================================= block apply
 def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
-                 rnn_state=None, decode=False):
+                 cross_kv=None, rnn_state=None, decode=False):
     """Returns (x, cache, new_rnn_state). Prefill (``decode`` False) starts
-    the recurrences from the zero state; decode continues ``rnn_state``."""
+    the recurrences from the zero state; decode continues ``rnn_state``.
+    The moe layer's auxiliary loss is dropped: serving does not read it."""
     if kind == "rwkv":
         st = rnn_state if decode else {}
         h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
@@ -146,6 +172,18 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
         y, cm_last = R.rwkv_channel_mix(p.cmix, h,
                                         shift_prev=st.get("cm_prev"))
         return x + y, cache, {"S": s2, "tm_prev": tm_last, "cm_prev": cm_last}
+
+    if kind in ("enc", "dec"):
+        h = L.layernorm(x, p.ln1, p.lnb1, cfg.norm_eps)
+        y, cache = L.attention(p.attn, h, cfg, positions=positions,
+                               causal=kind == "dec", cache=cache)
+        x = x + y
+        if kind == "dec":
+            h = L.layernorm(x, p.ln3, p.lnb3, cfg.norm_eps)
+            x = x + L.attention(p.xattn, h, cfg, positions=positions,
+                                cross_kv=cross_kv)[0]
+        h = L.layernorm(x, p.ln2, p.lnb2, cfg.norm_eps)
+        return x + L.mlp(p.mlp, h), cache, None
 
     new_rnn = None
     h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
@@ -163,7 +201,8 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
         y = attn_y
     x = x + y
     h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
-    return x + L.mlp(p.mlp, h), cache, new_rnn
+    y = M.moe_ffn(p.moe, h, cfg)[0] if kind == "moe" else L.mlp(p.mlp, h)
+    return x + y, cache, new_rnn
 
 
 # ==================================================================== Model
@@ -173,27 +212,35 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in SERVED_FAMILIES:
-            raise NotImplementedError(
-                f"the port serves the {SERVED_FAMILIES} families; "
-                f"{cfg.family!r} ({cfg.name}) is still to port (ROADMAP.md, "
-                f"port queue)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._rules: dict[str, tuple] = {}
-        dt = L.dtype_of(cfg)
-        emb = {"tok": _dense((cfg.vocab, cfg.d_model), dt,
-                             1.0 / math.sqrt(cfg.d_model))}
+        d, dt = cfg.d_model, L.dtype_of(cfg)
+        emb = {"tok": _dense((cfg.vocab, d), dt, 1.0 / math.sqrt(d))}
         if not cfg.tie_embeddings:
-            emb["out"] = _dense((cfg.d_model, cfg.vocab), dt,
-                                1.0 / math.sqrt(cfg.d_model))
-        top = _Leaves({"embed": emb, "final_norm": _fill((cfg.d_model,), 1.0)},
-                      self.device, self._rules, "")
-        self.embed, self.final_norm = top.embed, top.final_norm
-        kind = _block_kind(cfg)
-        self.layers = nn.ModuleList(
-            _Leaves(_block_spec(cfg, kind), self.device, self._rules,
-                    f"layers.{i}.") for i in range(cfg.n_layers))
+            emb["out"] = _dense((d, cfg.vocab), dt, 1.0 / math.sqrt(d))
+        top = {"embed": emb, "final_norm": _fill((d,), 1.0)}
+        if cfg.family == "encdec":
+            top.update(enc_norm=_fill((d,), 1.0), enc_normb=_fill((d,), 0.0))
+        if cfg.family == "vlm":
+            top["patch_proj"] = _dense((d, d), dt)
+        top = _Leaves(top, self.device, self._rules, "")
+        for name, leaf in (*top.named_children(),
+                           *top.named_parameters(recurse=False)):
+            setattr(self, name, leaf)
+
+        def stack(name, kind, n):
+            return nn.ModuleList(
+                _Leaves(_block_spec(cfg, kind), self.device, self._rules,
+                        f"{name}.{i}.") for i in range(n))
+
+        if cfg.moe_first_dense:
+            self.first_layers = stack("first_layers", "dense_ffn_moe_arch",
+                                      cfg.moe_first_dense)
+        self.layers = stack("layers", _block_kind(cfg),
+                            cfg.n_layers - cfg.moe_first_dense)
+        if cfg.family == "encdec":
+            self.encoder = stack("encoder", "enc", cfg.encoder_layers)
 
     # ----------------------------------------------------------------- init
     @torch.no_grad()
@@ -210,6 +257,53 @@ class Model(nn.Module):
                                     device=generator.device) * value)
         return self
 
+    # ------------------------------------------------------------- embedding
+    def _embed_inputs(self, batch: dict, tokens):
+        """Token embeddings; for vlm, ``patch_embeds`` (b, P, d) projected by
+        ``patch_proj`` and written over the first P positions."""
+        x = L.embed(self.embed, tokens)
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            pe = torch.as_tensor(batch["patch_embeds"], device=self.device)
+            n_patch = pe.shape[1]
+            if n_patch > x.shape[1]:
+                raise ValueError(f"{n_patch} patch embeddings for "
+                                 f"{x.shape[1]} positions")
+            x[:, :n_patch] = torch.einsum("bpd,de->bpe", pe.to(x.dtype),
+                                          self.patch_proj)
+        return x
+
+    def _positions(self, batch: dict, b: int, s: int):
+        """(b, s) positions, or (3, b, s) for multimodal RoPE:
+        ``positions3`` if given, else the same positions three times."""
+        if self.cfg.m_rope and "positions3" in batch:
+            return torch.as_tensor(batch["positions3"],
+                                   device=self.device).long()
+        pos = torch.arange(s, device=self.device)[None].expand(b, s)
+        return torch.stack([pos] * 3) if self.cfg.m_rope else pos
+
+    # ------------------------------------------------------------- encoders
+    def _encode(self, batch: dict):
+        """Whisper's encoder over ``frames`` (b, S, d): the frames in the
+        model's dtype plus sinusoidal positions, the encoder layers, the
+        final LayerNorm."""
+        cfg = self.cfg
+        frames = torch.as_tensor(batch["frames"], device=self.device).to(
+            L.dtype_of(cfg))
+        b, s, d = frames.shape
+        x = frames + L.sinusoid_positions(s, d, self.device).to(frames.dtype)
+        pos = torch.arange(s, device=self.device)[None].expand(b, s)
+        x = self._run(self.encoder, "enc", x, pos)
+        return L.layernorm(x, self.enc_norm, self.enc_normb, cfg.norm_eps)
+
+    def _cross_kv(self, enc_out):
+        """Each decoder layer's cross-attention K and V of the encoder's
+        output, stacked (n_layers, b, S, n_kv, hd). No bias, as the
+        reference's (its ``_qkv`` bias applies to q only)."""
+        ks, vs = zip(*((torch.einsum("bsd,dhk->bshk", enc_out, p.xattn["wk"]),
+                        torch.einsum("bsd,dhk->bshk", enc_out, p.xattn["wv"]))
+                       for p in self.layers))
+        return torch.stack(ks), torch.stack(vs)
+
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill_fn(self, batch: dict):
@@ -218,11 +312,24 @@ class Model(nn.Module):
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         b, s = tokens.shape
-        x = L.embed(self.embed, tokens)
-        pos = torch.arange(s, device=self.device)[None].expand(b, s)
-        caches, rnn = self._inner_state(b, self._cache_len(s), s)
-        x = self._layers(x, pos, caches, rnn, decode=False)
-        return self._logits(x[:, -1:]), {"kv": caches, "rnn": rnn}
+        pos = self._positions(batch, b, s)
+        if cfg.family == "encdec":
+            cross = self._cross_kv(self._encode(batch))
+            caches = self._self_caches(b, cfg.decoder_len)
+            x = self._run(self.layers, "dec", L.embed(self.embed, tokens),
+                          pos, caches, cross=cross)
+            return self._logits(x[:, -1:]), {"kv": caches, "cross": cross}
+        x = self._embed_inputs(batch, tokens)
+        state = {}
+        if cfg.moe_first_dense:
+            state["kv_first"] = self._self_caches(b, self._cache_len(s),
+                                                  n=cfg.moe_first_dense)
+            x = self._run(self.first_layers, "dense_ffn_moe_arch", x, pos,
+                          state["kv_first"])
+        caches, rnn = self._inner_state(b, self._cache_len(s))
+        x = self._run(self.layers, _block_kind(cfg), x, pos, caches, rnn)
+        state.update(kv=caches, rnn=rnn)
+        return self._logits(x[:, -1:]), state
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
@@ -230,22 +337,36 @@ class Model(nn.Module):
         """One token for every sequence: tokens (b, 1) at position
         ``length``. Updates ``state`` in place and returns (logits,
         state)."""
+        cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b = tokens.shape[0]
         x = L.embed(self.embed, tokens)
         pos = torch.full((b, 1), int(length), device=self.device)
-        x = self._layers(x, pos, state["kv"], state["rnn"], decode=True)
+        if cfg.m_rope:
+            pos = torch.stack([pos] * 3)
+        if cfg.family == "encdec":
+            x = self._run(self.layers, "dec", x, pos, state["kv"],
+                          cross=state["cross"], decode=True)
+            return self._logits(x), state
+        if cfg.moe_first_dense:
+            x = self._run(self.first_layers, "dense_ffn_moe_arch", x, pos,
+                          state["kv_first"], decode=True)
+        x = self._run(self.layers, _block_kind(cfg), x, pos, state["kv"],
+                      state["rnn"], decode=True)
         return self._logits(x), state
 
-    def _layers(self, x, pos, caches, rnn, *, decode: bool):
-        kind = _block_kind(self.cfg)
-        for i, p in enumerate(self.layers):
+    def _run(self, layers, kind: str, x, pos, caches=None, rnn=None, *,
+             cross=None, decode: bool = False):
+        """The layers in order, layer i on slice i of the stacked caches,
+        recurrent states and cross K/V."""
+        for i, p in enumerate(layers):
             cache = None if caches is None else L.KVCache(
                 caches.k[i], caches.v[i], caches.length[i])
             rnn_i = None if rnn is None else {k: v[i] for k, v in rnn.items()}
-            x, _, new_rnn = _apply_block(p, x, self.cfg, kind, positions=pos,
-                                         cache=cache, rnn_state=rnn_i,
-                                         decode=decode)
+            x, _, new_rnn = _apply_block(
+                p, x, self.cfg, kind, positions=pos, cache=cache,
+                cross_kv=None if cross is None else (cross[0][i], cross[1][i]),
+                rnn_state=rnn_i, decode=decode)
             if rnn is not None:
                 for k, v in new_rnn.items():
                     rnn[k][i].copy_(v)
@@ -267,8 +388,10 @@ class Model(nn.Module):
         return base
 
     def _self_caches(self, b: int, cache_len: int, n: int | None = None):
+        """Zeroed caches of ``n`` layers (default: the main stack's,
+        ``n_layers - moe_first_dense``)."""
         cfg = self.cfg
-        n = cfg.n_layers if n is None else n
+        n = cfg.n_layers - cfg.moe_first_dense if n is None else n
         shape = (n, b, cache_len, cfg.n_kv, cfg.head_dim)
         dt = L.cache_dtype(cfg)
         return L.KVCache(
@@ -276,12 +399,12 @@ class Model(nn.Module):
             v=torch.zeros(shape, dtype=dt, device=self.device),
             length=torch.zeros((n,), dtype=torch.int32, device=self.device))
 
-    def _inner_state(self, b: int, cache_len: int, seq: int):
+    def _inner_state(self, b: int, cache_len: int):
         cfg = self.cfg
         kind = _block_kind(cfg)
-        n = cfg.n_layers
+        n = cfg.n_layers - cfg.moe_first_dense
         caches, rnn = None, None
-        if kind in ("dense", "hybrid"):
+        if kind in ("dense", "moe", "hybrid"):
             caches = self._self_caches(b, cache_len)
         if kind == "hybrid":
             rnn = {"ssd": torch.zeros((n, b, cfg.n_heads, cfg.ssm_state,

@@ -24,6 +24,7 @@ from repro_torch.convert import model_params_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import Model, build_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from zoo_harness import flat_params  # noqa: E402
 
 
 def test_greedy_tokens_match_jax_engine():
@@ -34,10 +35,8 @@ def test_greedy_tokens_match_jax_engine():
     cfg = dataclasses.replace(smoke_config("hymba-1.5b"), **over)
     jm = jax_build_model(jcfg)
     params, _ = jm.init(jax.random.PRNGKey(3))
-    flat = {"/".join(str(k.key) for k in path): np.asarray(leaf)
-            for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
     tm = build_model(cfg, device="cpu")
-    tm.load_state_dict(model_params_from_numpy(cfg, flat))
+    tm.load_state_dict(model_params_from_numpy(cfg, flat_params(params)))
 
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (40, 25, 7, 33)]

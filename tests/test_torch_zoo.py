@@ -1,8 +1,10 @@
-"""The port's model-zoo pieces that need neither a card nor a JAX model:
-the config copies equal the reference's, the kernel wrappers take CUDA
-tensors only, the model refuses the families it does not serve, the
-parameter conversion checks what it is given and the one-token recurrent
-step equals the reference's."""
+"""The port's model-zoo pieces that need neither a card nor a compiled JAX
+model: the config copies equal the reference's, the parameters of the
+moe, vlm and encdec families have the reference's names, shapes and dtypes
+at full size (a JAX trace, no compile), the kernel wrappers take CUDA
+tensors only, the parameter conversion checks what it is given, the MoE
+capacity and combine, and the one-token recurrent step equals the
+reference's."""
 import dataclasses
 
 import numpy as np
@@ -18,7 +20,8 @@ from repro_torch.convert import model_params_from_numpy  # noqa: E402
 from repro_torch.kernels import build, flash_attention, ops  # noqa: E402
 from repro_torch.kernels import rwkv6_scan, ssm_scan  # noqa: E402
 from repro_torch.models import linear_rnn as R  # noqa: E402
-from repro_torch.models.model import Model, build_model  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 
 
 @pytest.mark.parametrize("arch", jreg.ARCHS)
@@ -36,9 +39,78 @@ def test_configs_equal_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "moonshot-v1-16b-a3b",
                                   "whisper-large-v3", "qwen2-vl-72b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(registry.smoke_config(arch), device="cpu")
+def test_new_families_hold_the_reference_params(arch):
+    """At full size: the port's parameters (``first_layers``, ``encoder``,
+    ``patch_proj`` and the rest) are the reference's tree, unstacked, leaf
+    for leaf in shape and dtype."""
+    import jax
+    from repro.models.model import build_model as jax_build_model
+    cfg = registry.get_config(arch)
+    shapes = jax.eval_shape(lambda k: jax_build_model(cfg).init(k)[0],
+                            jax.random.PRNGKey(0))
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        parts = [str(k.key) for k in path]
+        if parts[0] in ("layers", "first_layers", "encoder"):
+            for i in range(leaf.shape[0]):
+                want[".".join([parts[0], str(i), *parts[1:]])] = (
+                    tuple(leaf.shape[1:]), str(leaf.dtype))
+        else:
+            want[".".join(parts)] = (tuple(leaf.shape), str(leaf.dtype))
+    got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+           for k, v in Model(cfg, device="meta").state_dict().items()}
+    assert got == want
+
+
+def moe_cfg(**over):
+    return dataclasses.replace(registry.get_config("moonshot-v1-16b-a3b"),
+                               **over)
+
+
+@pytest.mark.parametrize("s,cap", [(1, 6), (2, 8), (2048, 256), (4096, 512),
+                                   (100, 16), (16, 8)])
+def test_moe_capacity_rounds_as_the_reference(s, cap):
+    """cf * s * k / E (moonshot: 1.25, top 6 of 64): decode min(8, k);
+    below 128 up to a multiple of 8 (100 tokens: 11 -> 16); from 128 on up
+    to a multiple of 128 (2048: 240 -> 256); at most s * k."""
+    assert M.capacity(moe_cfg(), s) == cap
+    assert M.capacity(moe_cfg(top_k=2, n_experts=8), 1) == 2
+    assert M.capacity(moe_cfg(n_experts=4, top_k=2), 3) == 6
+
+
+def test_moe_combine_is_the_same_on_every_call():
+    """Two calls on the same input give bit-equal outputs, and each token's
+    slots are added in slot order: the output equals a sequential
+    scatter-add over the slots (the reference's combine)."""
+    cfg = dataclasses.replace(registry.smoke_config("moonshot-v1-16b-a3b"),
+                              dtype="float32", capacity_factor=0.6)
+    g = torch.Generator().manual_seed(4)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    p = {"router": torch.randn(d, e, generator=g) / d ** 0.5,
+         "wi": torch.randn(e, d, f, generator=g) / d ** 0.5,
+         "wg": torch.randn(e, d, f, generator=g) / d ** 0.5,
+         "wo": torch.randn(e, f, d, generator=g) / f ** 0.5}
+    x = torch.randn(3, 40, d, generator=g)
+    y1, aux1 = M.moe_ffn(p, x, cfg)
+    y2, aux2 = M.moe_ffn(p, x, cfg)
+    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+    assert torch.equal(aux1, aux2)
+    r, _ = M.route(p, x, cfg)
+    assert not bool(r.kept.all())       # the capacity drops some choices
+    xe = torch.gather(x, 1, r.tok_of_slot[..., None].expand(-1, -1, d))
+    xe = xe * (r.gate_of_slot > 0)[..., None]
+    h = torch.einsum("bsd,bsdf->bsf", xe,
+                     p["wi"].repeat_interleave(r.cap, 0)[None])
+    gg = torch.einsum("bsd,bsdf->bsf", xe,
+                      p["wg"].repeat_interleave(r.cap, 0)[None])
+    ye = torch.einsum("bsf,bsfd->bsd", torch.nn.functional.silu(gg) * h,
+                      p["wo"].repeat_interleave(r.cap, 0)[None])
+    want = torch.zeros_like(x)
+    for bi in range(x.shape[0]):
+        for slot in range(e * r.cap):
+            want[bi, r.tok_of_slot[bi, slot]] += (
+                ye[bi, slot] * r.gate_of_slot[bi, slot])
+    torch.testing.assert_close(y1, want, atol=1e-5, rtol=1e-5)
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
