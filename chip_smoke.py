@@ -191,12 +191,28 @@ results when they need them. Phases, each of which raises on failure:
    token counts, the same for moonshot-v1-16b-a3b and mixtral-8x22b,
    then ``--full --prompt-len 2048`` on the card for hymba-1.5b, rwkv6-7b
    and moonshot-v1-16b-a3b;
+4t. training: one step of each family's smoke config (smollm-135m,
+   moonshot-v1-16b-a3b, hymba-1.5b, rwkv6-7b, qwen2-vl-72b,
+   whisper-large-v3) in float32 with TF32 off, seeded weights and one
+   batch, through ``Model.loss_fn`` (the kernels in its forward, the
+   autograd wrappers recomputing the reference's plain forms backward) and
+   one AdamW step on the card, against the same in the worker processes on
+   the CPU: loss, aux, every gradient leaf, the moments and the update of
+   the params after the step within the CPU tests' tolerances, and each
+   zoo kernel launched once a layer a forward (``train_launches``: the forward, then the
+   ``remat="full"`` recompute); then hymba-1.5b whole and rwkv6-7b at full
+   width cut to 8 of 32 layers in bfloat16, B 4 x S 2048, one warm-up and
+   3 timed steps (ms a step, tokens/s, peak memory) and one profiled step
+   (busy share, the costliest device ops); then ``python -m
+   repro_torch.launch.train --arch smollm-135m --full --steps 30`` on the
+   card, whose last 10 steps' mean loss is below its first 10's;
 6. a JSON line of the kernels, then the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -243,6 +259,11 @@ TF32_OPS_PER_S = 495e12
 # centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
 # Tier-2 sites per Tier-1; the builder calls of `simulate t0t1`.
 N_T1, T2_PER_T1 = 13, 4
+# Phase 4t's families: one train step each at its smoke config in float32,
+# the card (kernels) against the CPU run of the worker processes (plain
+# versions), on the same weights and batch.
+TRAIN_FAMILIES = ("smollm-135m", "moonshot-v1-16b-a3b", "hymba-1.5b",
+                  "rwkv6-7b", "qwen2-vl-72b", "whisper-large-v3")
 # phase 4h's shards over the card(s): 8 agents, K = 2
 DIST_D = 4
 # phase 5's `simulate t0t1` configurations, each at two of the CLI's four
@@ -1292,7 +1313,7 @@ def phase_maxmin(g) -> dict:
     from repro_torch.kernels import bandwidth_share as bs
     from repro_torch.kernels import ref
 
-    def check(B, F, L, edge=None):
+    def check(B, F, L, edge=None, quiet=False):
         inc, bw, act = maxmin_inputs(g, B, F, L, edge)
         order = ref.flow_order(F, L, B)
         bs.reset_launches()
@@ -1302,6 +1323,8 @@ def phase_maxmin(g) -> dict:
             raise AssertionError(f"maxmin_rates {(B, F, L)} ran {ran}")
         want = ref.maxmin_rates(inc, bw, act)
         max_err(got.view(torch.int32), want.view(torch.int32))
+        if quiet:
+            return inc, bw, act
         print(f"[kernels] maxmin_rates B={B} F={F} L={L} head={order.head}"
               f" chains={order.chains} tail_lanes={order.tail_lanes}"
               f" trailing={order.trailing}"
@@ -1315,10 +1338,20 @@ def phase_maxmin(g) -> dict:
     cases = [(2048, 32, 4), (8, 32, 4), (1, 32, 4), (64, 32, 32),
              (64, 1, 32), (64, 32, 1), (64, 33, 4), (64, 32, 33),
              (256, 128, 64), (1, 128, 64), (1, 60, 8), (1, 1, 1), (3, 1, 4)]
-    for F, ranges in sorted(ref._UNBATCHED_ORDER.items()):
-        cases += [(1, F, L) for lo, hi, _ in ranges for L in {lo, hi}]
+    # both ends of every tabled range, one line a flow count from 129 on
+    # (the orders repeat every 32 flows)
     for B, F, L in cases:
         check(B, F, L)
+    t0 = time.perf_counter()
+    for F, ranges in sorted(ref._UNBATCHED_ORDER.items()):
+        ends = sorted({L for lo, hi, _ in ranges for L in (lo, hi)})
+        for L in ends:
+            check(1, F, L, quiet=F > 128)
+        if F > 128:
+            print(f"[kernels] maxmin_rates B=1 F={F} L={ends}: equal",
+                  flush=True)
+    print(f"[time] 3 maxmin: every tabled range end: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for edge in ("idle", "no_bw", "neg_bw", "repeat"):
         check(64, 32, 4, edge)
         check(1, 128, 64, edge)
@@ -1380,7 +1413,7 @@ def maxmin_call(bs, inc, bw, act) -> None:
         o = torch.empty((B, F), dtype=torch.float32, device=inc.device)
         return lib.launch_maxmin_rates(
             inc.data_ptr(), bw.data_ptr(), act.data_ptr(), o.data_ptr(), B,
-            F, L, order.head, packed, order.chains, order.tail_lanes,
+            F, L, order.head, *packed, order.chains, order.tail_lanes,
             order.trailing, torch.cuda.current_stream().cuda_stream)
 
     pieces = {
@@ -1403,7 +1436,7 @@ def maxmin_call(bs, inc, bw, act) -> None:
         "data_ptr x4": lambda: (inc.data_ptr(), bw.data_ptr(),
                                 act.data_ptr(), out.data_ptr()),
         "ctypes call (the launch)": lambda: lib.launch_maxmin_rates(
-            *ptrs, B, F, L, 0, 0, 1, 1, 0, stream),
+            *ptrs, B, F, L, 0, 0, 0, 0, 0, 1, 1, 0, stream),
         "whole: bs.maxmin_rates": lambda: bs.maxmin_rates(inc, bw, act,
                                                           order),
         "whole: the call as before": as_before,
@@ -1490,6 +1523,8 @@ def _cpu_job(job: str):
             ["cpu"] * 2))
     elif kind == "zoo":
         out = zoo_run(what, "cpu")
+    elif kind == "train":
+        out = train_run(what, "cpu")
     elif kind == "cli":
         from repro_torch.launch import simulate
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1507,7 +1542,8 @@ CPU_JOBS = ("tiered cpu", "tiered oracle", "workload cpu", "cache cpu",
             f"cli distributed --devices {DIST_D}",
             *(f"cli t0t1 {' '.join(flags)}" for flags in T0T1_RUNS.values()),
             "zoo hymba-1.5b", "zoo rwkv6-7b", "zoo moonshot-v1-16b-a3b",
-            "zoo whisper-large-v3", "zoo qwen2-vl-72b")
+            "zoo whisper-large-v3", "zoo qwen2-vl-72b",
+            *(f"train {arch}" for arch in TRAIN_FAMILIES))
 
 
 class Background:
@@ -3795,6 +3831,347 @@ def phase_serve_entry() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 4t
+# one AdamW step at lr 1e-3 without warmup (as tests/train_harness.py)
+TRAIN_TC = dict(learning_rate=1e-3, warmup_steps=1)
+# the CPU tests' tolerances (tests/train_harness.py): loss, aux and the
+# global norm atol = rtol = 1e-4; gradients and first moments per leaf atol
+# = 1e-4 * max|cpu|, rtol = 1e-3; second moments twice that; the update p1
+# - p0 within 1e-3 lr (plus 4 float32 spacings of p) where the CPU's
+# gradient is 10 times its tolerance and 1e3 eps (clipped), so that its
+# sign is fixed, and within 2 lr elsewhere
+TRAIN_LOSS_TOL = dict(atol=1e-4, rtol=1e-4)
+TRAIN_REL_ATOL, TRAIN_RTOL = 1e-4, 1e-3
+TRAIN_UPDATE_MARGIN, TRAIN_UPDATE_RTOL = 10.0, 1e-3
+# the full-width steps: (arch, layer cut), bfloat16, B x S, remat "full"
+TRAIN_FULL = (("hymba-1.5b", {}), ("rwkv6-7b", dict(n_layers=8)))
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 3
+
+
+def train_inputs(cfg) -> dict:
+    """Phase 4t's batch (CPU tensors) from seed 1: 2 rows of 64 tokens,
+    the targets the tokens shifted, the first three of row 0 masked; encdec
+    64 frames and 8 decoder tokens, vlm 16 patch embeddings and the same
+    positions three times."""
+    import torch
+    g = torch.Generator().manual_seed(1)
+    b, s = 2, 64
+    if cfg.family == "encdec":
+        batch = {"frames": torch.randn(b, s, cfg.d_model, generator=g),
+                 "tokens": torch.randint(0, cfg.vocab, (b, 8), generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(b, 16, cfg.d_model, generator=g)
+        pos = torch.arange(s)[None].expand(b, s)
+        batch["positions3"] = torch.stack([pos] * 3)
+    targets = torch.roll(batch["tokens"], -1, dims=1)
+    targets[0, :3] = -1
+    batch["targets"] = targets
+    return batch
+
+
+def train_run(arch: str, device: str) -> dict:
+    """Phase 4t's step of one family's smoke config in float32 on
+    ``device``: loss, aux, tokens, every gradient leaf, then the params and
+    moments after one AdamW step, as numpy in the reference's layout; on
+    the card also the zoo kernels' launches in the loss's forward and
+    backward."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.convert import model_params_to_numpy
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.loop import loss_and_grads
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    model = seeded_weights(build_model(cfg, device=device), 0)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    batch = {k: v.to(device) for k, v in train_inputs(cfg).items()}
+    if device != "cpu":
+        torch.cuda.synchronize()
+        reset_launches()
+    loss, met, grads = loss_and_grads(model, params, batch)
+    out = dict(loss=float(loss), aux=float(met["aux"]),
+               tokens=float(met["tokens"]),
+               grads=model_params_to_numpy(grads))
+    if device != "cpu":
+        torch.cuda.synchronize()
+        out["launches"] = launches()
+    out["p0"] = {k: a.copy() for k, a in model_params_to_numpy(params).items()}
+    opt = topt.init_opt_state(params)
+    _, opt, om = topt.adamw_update(params, grads, opt,
+                                   TrainConfig(**TRAIN_TC))
+    out.update(params=model_params_to_numpy(params),
+               m=model_params_to_numpy(opt.m), v=model_params_to_numpy(opt.v),
+               grad_norm=float(om["grad_norm"]),
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def leaves_close(label: str, got: dict, want: dict, *, rel_atol: float,
+                 rtol: float, atol: float = 0.0) -> float:
+    """Raises unless both trees hold the same leaves and each leaf is
+    finite and within atol + rel_atol * max|want| + rtol * |want|; returns
+    the largest abs error."""
+    import numpy as np
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: leaves {sorted(got)} vs "
+                             f"{sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{label} {k}: {g.shape} vs {w.shape}, or "
+                                 f"not finite")
+        tol = atol + rel_atol * float(np.abs(w).max(initial=0.0)) \
+            + rtol * np.abs(w)
+        err = np.abs(g - w)
+        if (err > tol).any():
+            raise AssertionError(f"{label} {k}: max abs error "
+                                 f"{float(err.max())} outside the tolerance")
+        worst = max(worst, float(err.max(initial=0.0)))
+    return worst
+
+
+def update_close(label: str, got: dict, want: dict) -> tuple:
+    """Raises unless the card's parameters after one AdamW step moved from
+    the same ``p0`` as the CPU's by the CPU's update: within
+    TRAIN_UPDATE_RTOL * lr (plus 4 float32 spacings of p) where the CPU's
+    gradient fixes the update's sign, within 2 lr elsewhere, the former
+    most of the elements. Returns (largest error where held tight, how
+    many elements were, of how many)."""
+    import numpy as np
+    from repro_torch.configs.base import TrainConfig
+    tc = TrainConfig(**TRAIN_TC)
+    lr = tc.learning_rate
+    clip = min(1.0, tc.grad_clip / max(want["grad_norm"], 1e-9))
+    worst, n_tight, n_all = 0.0, 0, 0
+    for k, w1 in want["params"].items():
+        p0, g = want["p0"][k], want["grads"][k]
+        if not np.array_equal(got["p0"][k], p0):
+            raise AssertionError(f"{label} {k}: the card's p0 is not the "
+                                 f"CPU's")
+        err = np.abs((got["params"][k] - p0) - (w1 - p0))
+        tol_g = TRAIN_REL_ATOL * float(np.abs(g).max(initial=0.0)) \
+            + TRAIN_RTOL * np.abs(g)
+        tight = (np.abs(g) > TRAIN_UPDATE_MARGIN * tol_g) \
+            & (np.abs(g) * clip > 1e3 * tc.eps)
+        bound = TRAIN_UPDATE_RTOL * lr + 4 * np.spacing(np.abs(p0))
+        if not np.isfinite(err).all() or (err[tight] > bound[tight]).any() \
+                or (err > 2 * lr).any():
+            raise AssertionError(f"{label} {k}: update off by "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err[tight].max(initial=0.0)))
+        n_tight += int(tight.sum())
+        n_all += err.size
+    if n_tight <= n_all // 2:
+        raise AssertionError(f"{label}: {n_tight} of {n_all} elements with "
+                             f"a gradient that fixes the update's sign")
+    return worst, n_tight, n_all
+
+
+def train_launches(cfg) -> dict:
+    """The zoo kernels' launches in one loss and gradient: once a layer a
+    forward (``zoo_launches``), and ``remat="full"`` runs each block's
+    forward a second time in the backward (``torch.utils.checkpoint``); the
+    autograd wrappers' own backward launches nothing."""
+    forwards = 2 if cfg.remat == "full" else 1
+    return {k: forwards * n for k, n in zoo_launches(cfg).items()}
+
+
+def phase_train_families(card: str, bg) -> dict:
+    """One train step of each family's smoke config in float32 with TF32
+    off: the card (kernels) against the worker's CPU run (plain versions)
+    at the CPU tests' tolerances, the zoo kernels' launches checked."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import smoke_config
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {}
+    try:
+        for arch in TRAIN_FAMILIES:
+            cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+            got = train_run(arch, "cuda")
+            want = bg.get(f"train {arch}")
+            for key in ("loss", "aux", "grad_norm"):
+                if not np.isclose(got[key], want[key], **TRAIN_LOSS_TOL):
+                    raise AssertionError(f"train {arch} {key}: card "
+                                         f"{got[key]} cpu {want[key]}")
+            if got["tokens"] != want["tokens"]:
+                raise AssertionError(f"train {arch}: tokens {got['tokens']}"
+                                     f" vs {want['tokens']}")
+            errs = dict(
+                grads=leaves_close(f"train {arch} grad", got["grads"],
+                                   want["grads"], rel_atol=TRAIN_REL_ATOL,
+                                   rtol=TRAIN_RTOL),
+                m=leaves_close(f"train {arch} m", got["m"], want["m"],
+                               rel_atol=TRAIN_REL_ATOL, rtol=TRAIN_RTOL),
+                v=leaves_close(f"train {arch} v", got["v"], want["v"],
+                               rel_atol=2 * TRAIN_REL_ATOL,
+                               rtol=2 * TRAIN_RTOL))
+            errs["update"], n_tight, n_all = update_close(
+                f"train {arch} params", got, want)
+            ran = {k: got["launches"][k] for k in ZOO_KERNELS}
+            if ran != train_launches(cfg):
+                raise AssertionError(f"train {arch}: launches {ran}, want "
+                                     f"{train_launches(cfg)}")
+            print(f"[train] {arch} smoke float32 (layers {cfg.n_layers}, "
+                  f"remat {cfg.remat}): card == cpu: loss "
+                  f"{got['loss']:.6f} vs {want['loss']:.6f}, aux "
+                  f"{got['aux']:.6f} vs {want['aux']:.6f}, grad norm "
+                  f"{got['grad_norm']:.6f} vs {want['grad_norm']:.6f}; max "
+                  f"abs err grads {errs['grads']:.3e}, m {errs['m']:.3e}, "
+                  f"v {errs['v']:.3e}, AdamW update {errs['update']:.3e} "
+                  f"(on the {n_tight} of {n_all} elements whose gradient "
+                  f"fixes its sign); launches {ran} (forward and "
+                  f"remat recompute); card {got['seconds']:.1f} s, cpu "
+                  f"worker {want['seconds']:.1f} s ({card})", flush=True)
+            result[arch] = ran
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return result
+
+
+def profile_train_step(step, label: str, card: str) -> dict:
+    """One train step under torch.profiler: wall ms, device ops, the
+    device's busy share of the wall and the six costliest device ops by
+    name (read from the raw trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = device_ops(prof)
+    if not kern:
+        raise AssertionError(f"{label}: the profile holds no device op")
+    by_name: dict = {}
+    for e in kern:
+        ns, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    print(f"[train full] {label} profiled step: wall {wall_ms:.3f} ms, "
+          f"{len(kern)} device ops, device busy {busy_ms:.3f} ms = "
+          f"{busy_ms / wall_ms:.4f} of the wall ({card})", flush=True)
+    for name, (ns, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[train full] {label}:   {ns / 1e6:.3f} ms "
+              f"({ns / 1e6 / busy_ms:.4f} of busy) in {n} calls of "
+              f"{name[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, busy=busy_ms / wall_ms, ops=len(kern))
+
+
+def train_full(arch: str, cut: dict, card: str) -> dict:
+    """``arch`` at full width (``cut`` its depth) in bfloat16 on the card:
+    random weights from a card generator, batches of the synthetic stream
+    (B 4 x S 2048), remat "full"; one warm-up step, then ``TRAIN_TIMED``
+    timed steps and one profiled. Prints tokens/s, ms a step, peak memory
+    and the zoo kernels' launches a step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.loop import make_train_step
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    params = dict(model.named_parameters())
+    opt = topt.init_opt_state(params)
+    step = make_train_step(model, TrainConfig(learning_rate=3e-4,
+                                              warmup_steps=2))
+    dcfg = dp.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B)
+    batches = [{k: v.to("cuda") for k, v in
+                dp.batch_for_shard(dcfg, i, 0, 1).items()}
+               for i in range(TRAIN_TIMED + 2)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state = [params, opt]
+
+    def run(i):
+        state[0], state[1], m = step(state[0], state[1], batches[i])
+        return m
+
+    losses = [float(run(0)["loss"])]               # the warm-up step
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_TIMED + 1):
+        losses.append(float(run(i)["loss"]))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    ran = {k: v // TRAIN_TIMED for k, v in launches().items()
+           if k in ZOO_KERNELS}
+    if ran != train_launches(cfg):
+        raise AssertionError(f"train full {arch}: launches a step {ran}, "
+                             f"want {train_launches(cfg)}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train full {arch}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok = TRAIN_B * TRAIN_S
+    print(f"[train full] {arch} ({n_params} params, bfloat16, {cut or 'whole'}"
+          f", remat {cfg.remat}): B {TRAIN_B} x S {TRAIN_S}, "
+          f"{dt * 1e3:.3f} ms a step over {TRAIN_TIMED} steps after one "
+          f"warm-up, {tok / dt:.1f} tokens/s, peak memory {peak:.3f} GiB, "
+          f"losses {[round(x, 4) for x in losses]}, launches a step {ran}, "
+          f"weights and batches made in {init_s:.2f} s ({card})", flush=True)
+    prof = profile_train_step(lambda: run(TRAIN_TIMED + 1), arch, card)
+    del model, params, state, opt, step, batches
+    torch.cuda.empty_cache()
+    return dict(ms=dt * 1e3, tokens_per_s=tok / dt, peak_gib=peak,
+                launches=ran, **prof)
+
+
+def phase_train_entry(card: str) -> dict:
+    """``python -m repro_torch.launch.train --arch smollm-135m --full
+    --steps 30`` on the card (its ``main``, as phase 5z calls the serve
+    launcher's): the mean loss of the last 10 steps below the first 10's,
+    ``flash_attention`` launched."""
+    from repro_torch.launch import train as launch_train
+    reset_launches()
+    t0 = time.perf_counter()
+    got = launch_train.main(["--arch", "smollm-135m", "--full", "--steps",
+                             "30"])
+    took = time.perf_counter() - t0
+    ran = launches()
+    if not got["last10"] < got["first10"]:
+        raise AssertionError(f"launch.train: the loss did not fall: {got}")
+    if ran["flash_attention"] == 0:
+        raise AssertionError("launch.train never launched flash_attention")
+    print(f"[train entry] launch.train --arch smollm-135m --full --steps 30 "
+          f"on the card: first-10 loss {got['first10']:.4f} -> last-10 "
+          f"{got['last10']:.4f}; {took:.1f} s, launches {ran} ({card})",
+          flush=True)
+    return dict(first10=got["first10"], last10=got["last10"], seconds=took)
+
+
+def phase_train(card: str, bg) -> dict:
+    """Phase 4t: the families' step card against CPU, hymba-1.5b whole and
+    rwkv6-7b at full width cut to 8 layers, then the entry point."""
+    out = {"families": timed("4t families", phase_train_families, card, bg)}
+    for arch, cut in TRAIN_FULL:
+        out[arch] = timed(f"4t {arch}", train_full, arch, cut, card)
+    out["entry"] = timed("4t entry", phase_train_entry, card)
+    return out
+
+
 def ptxas_lines(log: str, kernels) -> None:
     """``ptxas -v``'s registers, shared memory and spills of each instance
     of the named kernels (the lines after each "Compiling entry function"
@@ -3887,6 +4264,7 @@ def run_phases(card: str, es, ref, bg: Background) -> int:
     served = timed("phase 4s", phase_serve, card)
     timed("phase 4s families", phase_serve_families, card)
     timed("phase 5z", phase_serve_entry)
+    timed("phase 4t", phase_train, card, bg)
 
     # launches on each kernel's own path: the stitched run for the four
     # stitched hooks and maxmin_rates, the fused run for fused_select and

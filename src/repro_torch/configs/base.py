@@ -1,6 +1,6 @@
-"""Model and shape configuration dataclasses of the model zoo: the port's
-copy of ``repro.configs.base`` (which imports no JAX), so that the port
-imports nothing of the reference package."""
+"""Model, shape and training configuration dataclasses of the model zoo:
+the port's copy of ``repro.configs.base`` (which imports no JAX), so that
+the port imports nothing of the reference package."""
 from __future__ import annotations
 
 import dataclasses
@@ -122,3 +122,18 @@ def applicable_shapes(cfg: ModelConfig) -> list[str]:
     if cfg.sub_quadratic:
         names.append("long_500k")
     return names
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient-accumulation steps
+    compress_grads: bool = False     # int8 + error-feedback DCN compression
+    opt_dtype: str = "float32"       # Adam moment dtype ("bfloat16" halves state)
+    seed: int = 0

@@ -6,7 +6,9 @@ The simulator has no weights; the model zoo has. Callers that hold JAX
 objects turn them into dicts of numpy arrays themselves (for example
 ``{k: np.asarray(v) for k, v in world._asdict().items()}``, or a params tree
 flattened to ``{"layers/attn/wq": array, ...}``); this module never sees a
-JAX object.
+JAX object. A model's gradients and AdamW moments are trees congruent with
+its parameters, so they cross the same way, both ways
+(:func:`model_params_from_numpy`, :func:`model_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -99,3 +101,43 @@ def model_params_from_numpy(cfg, flat: dict, device="cpu") -> dict:
             raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)}, the model "
                              f"holds {want[k].dtype} {tuple(want[k].shape)}")
     return {k: t.to(device) for k, t in out.items()}
+
+
+_STACKS = ("layers", "first_layers", "encoder")
+
+
+def leaf_path(name: str) -> str:
+    """The reference's params path of a port parameter: ``layers.3.attn.wq``
+    -> ``layers/attn/wq`` (the layer stacks hold one leaf for all layers)."""
+    parts = name.split(".")
+    if parts[0] in _STACKS:
+        del parts[1]
+    return "/".join(parts)
+
+
+def leaf_groups(names) -> dict[str, list[str]]:
+    """The port's parameter names grouped by reference leaf, in the order
+    the reference flattens its params (dict keys sorted at every level),
+    a stack's layers ascending."""
+    groups: dict[str, list[str]] = {}
+    for name in names:
+        groups.setdefault(leaf_path(name), []).append(name)
+    for grp in groups.values():
+        grp.sort(key=lambda n: int(n.split(".")[1]) if n.split(".")[0]
+                 in _STACKS else 0)
+    return {k: groups[k] for k in sorted(groups,
+                                         key=lambda k: tuple(k.split("/")))}
+
+
+def model_params_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`model_params_from_numpy`: a port tree keyed by
+    parameter name (a ``state_dict``, its gradients or moments) as the
+    reference's flat ``{"layers/attn/wq": array}``, the layers stacked on a
+    leading axis; bfloat16 as float32."""
+    def n(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {path: (np.stack([n(tree[m]) for m in grp])
+                   if path.split("/")[0] in _STACKS else n(tree[grp[0]]))
+            for path, grp in leaf_groups(tree).items()}

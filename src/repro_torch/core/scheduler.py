@@ -10,7 +10,7 @@ cluster. All-pairs shortest paths are min-plus matrix squaring.
 
 The scores equal the reference's bit for bit: the float32 sums over agents
 run in XLA:CPU's order (``sum_chunks``: left to right up to 32 agents, then
-in chunks, as ``tools/probe_sum_order.py`` reads it at 33-128 agents), and
+in chunks, as ``tools/probe_sum_order.py`` reads it at 33-512 agents), and
 the mean is the sum times the float32 reciprocal of the count, as XLA
 computes it.
 Placements are int32 and equal. Component state is replicated, so a
@@ -31,12 +31,12 @@ F32 = torch.float32
 
 # the largest agent count whose sum order was probed; beyond it the sums
 # run left to right (ROADMAP.md, section 3)
-PROBED_AGENTS = 128
+PROBED_AGENTS = 512
 
 
 def sum_chunks(n: int) -> list[int]:
     """XLA:CPU's partition of a float32 sum over ``n`` values (jax 0.9.0,
-    read at every n = 33-128 by ``tools/probe_sum_order.py``; the same for
+    read at every n = 33-512 by ``tools/probe_sum_order.py``; the same for
     ``jnp.sum``, ``jnp.mean`` and the row sums of an (n, n) matrix, op by op
     or jitted): up to 32 values one chunk; else ``ceil(n / 32)`` chunks,
     the inner ones of 32, the rest split between the two ends, the first

@@ -41,9 +41,11 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
                          f"{tuple(x.shape)} on {x.device}")
 
 
-def _pack_order(order: FlowOrder, n_flows: int, max_blocks: int) -> int:
+def _pack_order(order: FlowOrder, n_flows: int,
+                max_blocks: int) -> tuple[int, ...]:
     """Check a flow-sum order against what the kernel takes; return its
-    block order as 4-bit fields of one unsigned 64-bit integer."""
+    block order as byte fields of four unsigned 64-bit words (block k in
+    byte k % 8 of word k // 8)."""
     V, blocks, chains, W, trailing = order
     n_blocks, tail = V // 8, n_flows - V - trailing
     ok = (V % 8 == 0 and 0 <= V <= n_flows and n_blocks <= max_blocks
@@ -58,11 +60,15 @@ def _pack_order(order: FlowOrder, n_flows: int, max_blocks: int) -> int:
         raise ValueError(f"maxmin_rates: {order} is not a flow order the "
                          f"kernel takes for {n_flows} flows (at most "
                          f"{max_blocks} blocks of 8)")
-    return sum(b << (4 * k) for k, b in enumerate(blocks))
+    words = [0] * 4
+    for k, b in enumerate(blocks):
+        words[k // 8] |= b << (8 * (k % 8))
+    return tuple(words)
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(n_flows: int, n_links: int, order: FlowOrder) -> tuple[int, str]:
+def _plan(n_flows: int, n_links: int,
+          order: FlowOrder) -> tuple[tuple[int, ...], str]:
     """The packed flow order and the kernel for (F, L, order), checked once:
     the warp kernel sums left to right only, the block kernel's lane must
     fit one block's shared memory."""
@@ -72,7 +78,7 @@ def _plan(n_flows: int, n_links: int, order: FlowOrder) -> tuple[int, str]:
             raise ValueError(f"maxmin_rates: {n_flows} flows over {n_links} "
                              f"links run the warp kernel, which sums left "
                              f"to right only, got {order}")
-        return 0, "maxmin_warp_kernel"
+        return (0, 0, 0, 0), "maxmin_warp_kernel"
     need = lib.maxmin_smem_bytes(n_flows, n_links)
     if need > lib.maxmin_max_smem():
         raise ValueError(
@@ -100,7 +106,7 @@ def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
     out = torch.empty((B, F), dtype=torch.float32, device=inc.device)
     err = build.library("bandwidth_share").launch_maxmin_rates(
         inc.data_ptr(), bw.data_ptr(), active.data_ptr(), out.data_ptr(), B,
-        F, L, order.head, packed, order.chains, order.tail_lanes,
+        F, L, order.head, *packed, order.chains, order.tail_lanes,
         order.trailing, torch._C._cuda_getCurrentRawStream(inc.get_device()))
     if err != 0:
         raise RuntimeError(f"maxmin_rates: CUDA launch failed with error "

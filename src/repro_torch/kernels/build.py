@@ -34,8 +34,8 @@ _SIGNATURES = {
         "max_keys": [],
     },
     "bandwidth_share": {
-        "launch_maxmin_rates": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                ctypes.c_ulonglong, _I, _I, _I, _P],
+        "launch_maxmin_rates": [_P, _P, _P, _P, _I, _I, _I, _I]
+                               + [ctypes.c_ulonglong] * 4 + [_I, _I, _I, _P],
         "maxmin_smem_bytes": [_I, _I],
         "maxmin_max_smem": [],
         "maxmin_max_order_blocks": [],

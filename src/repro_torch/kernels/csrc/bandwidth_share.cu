@@ -64,8 +64,9 @@ constexpr float EPS = 1e-6f;
 constexpr float BIG = 3.0e38f;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_ORDER_BLOCKS = 16;   // 4 bits per block index in a u64
-constexpr int MAX_SMEM = 232448;       // one block's shared memory on H100
+constexpr int MAX_ORDER_BLOCKS = 32;   // a byte per block index, 4 u64 words
+// one block's shared memory on H100 less maxmin_kernel's static s_min
+constexpr int MAX_SMEM = 232448 - WARPS * (int)sizeof(float);
 constexpr int WARP_MAX = 32;           // flows and links the warp kernel takes
 constexpr int WARP_LANES = 8;          // lanes (warps) a CTA of the warp kernel
 
@@ -82,6 +83,14 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
+// The head's block order: block index k in byte k % 8 of word k / 8.
+struct BlockOrder {
+  unsigned long long w[MAX_ORDER_BLOCKS / 8];
+  __device__ __forceinline__ int at(int k) const {
+    return (int)((w[k >> 3] >> (8 * (k & 7))) & 255ull);
+  }
+};
+
 __device__ __forceinline__ float term(const float* inc, int ld,
                                       const float* rf, int f, int l) {
   return __fmul_rn(inc[f * ld + l], rf[f]);
@@ -94,7 +103,7 @@ __device__ __forceinline__ float term(const float* inc, int ld,
 // starting from the head's total), added by halves; then the last T flows
 // one at a time. V = 0: left to right.
 __device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
-                            int l, int V, unsigned long long order,
+                            int l, int V, const BlockOrder& order,
                             int chains, int W, int T) {
   if (V == 0) {
     float acc = term(inc, ld, rf, 0, l);
@@ -105,11 +114,11 @@ __device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
   float lane[8];
   for (int c = 0; c < chains; ++c) {
     float part[8];
-    const int b0 = (int)((order >> (4 * c * run)) & 15ull);
+    const int b0 = order.at(c * run);
 #pragma unroll
     for (int j = 0; j < 8; ++j) part[j] = term(inc, ld, rf, 8 * b0 + j, l);
     for (int k = c * run + 1; k < (c + 1) * run; ++k) {
-      const int bk = (int)((order >> (4 * k)) & 15ull);
+      const int bk = order.at(k);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         part[j] = __fadd_rn(part[j], term(inc, ld, rf, 8 * bk + j, l));
@@ -138,7 +147,7 @@ __device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
 __global__ void __launch_bounds__(THREADS)
 maxmin_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
               const uint8_t* __restrict__ active, float* __restrict__ out,
-              int F, int L, int V, unsigned long long order, int chains,
+              int F, int L, int V, BlockOrder order, int chains,
               int W, int T) {
   extern __shared__ float smem[];
   const int ld = row_stride(L);
@@ -332,16 +341,19 @@ int maxmin_warp_blocks_per_sm() {
 }
 
 // inc (B, F, L) f32, bw (B, L) f32, active (B, F) bool (one byte) -> out
-// (B, F) f32. (n_head, order, chains, tail_lanes, trailing): the flow-sum
-// order of kernels/ref.py::FlowOrder, n_head a multiple of 8 up to 8 *
-// MAX_ORDER_BLOCKS (0: left to right), order's 4-bit field k the block
-// summed k-th. F <= 32 and L <= 32 run maxmin_warp_kernel and take left to
-// right only; the rest run maxmin_kernel.
+// (B, F) f32. (n_head, order0..3, chains, tail_lanes, trailing): the
+// flow-sum order of kernels/ref.py::FlowOrder, n_head a multiple of 8 up to
+// 8 * MAX_ORDER_BLOCKS (0: left to right), byte k % 8 of order<k / 8> the
+// block summed k-th. F <= 32 and L <= 32 run maxmin_warp_kernel and take
+// left to right only; the rest run maxmin_kernel.
 int launch_maxmin_rates(const float* inc, const float* bw,
                         const uint8_t* active, float* out, int n_lanes,
                         int n_flows, int n_links, int n_head,
-                        unsigned long long order, int chains, int tail_lanes,
-                        int trailing, void* stream) {
+                        unsigned long long order0, unsigned long long order1,
+                        unsigned long long order2, unsigned long long order3,
+                        int chains, int tail_lanes, int trailing,
+                        void* stream) {
+  const BlockOrder order{{order0, order1, order2, order3}};
   const size_t smem = smem_bytes(n_flows, n_links);
   const int tail = n_flows - n_head - trailing;
   if (n_lanes < 1 || n_flows < 1 || n_links < 1 || smem > MAX_SMEM ||
@@ -361,13 +373,16 @@ int launch_maxmin_rates(const float* inc, const float* bw,
         inc, bw, active, out, n_lanes, n_flows, n_links);
     return (int)cudaGetLastError();
   }
+  // dynamic shared memory past 48 KB needs the kernel's attribute raised
+  // (to what this launch needs: with the static s_min, no more than a
+  // block holds)
   static size_t configured = 48 * 1024;
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         maxmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_SMEM);
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
-    configured = MAX_SMEM;
+    configured = smem;
   }
   maxmin_kernel<<<n_lanes, THREADS, smem, (cudaStream_t)stream>>>(
       inc, bw, active, out, n_flows, n_links, n_head, order, chains,

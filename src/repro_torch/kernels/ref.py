@@ -168,21 +168,39 @@ class FlowOrder(NamedTuple):
 LEFT_TO_RIGHT = FlowOrder()
 
 # XLA:CPU's order for an unbatched ``inc.T @ x`` over F flows and L links,
-# read off its compiled matvec (jax 0.9.0) at every F = 43-128 and L = 1-64
-# by tools/probe_flow_order.py. ``_UNBATCHED_ORDER[F]`` lists (first L,
-# last L, order). Every tree probed there has the FlowOrder form: a head of
-# 32, 48, 64, 96 or 128 flows in one of the six block orders below, then 1,
-# 2, 4 or 8 tail lanes and up to 8 trailing flows; the gaps between the
-# ranges sum left to right. The probe found left to right at every F <= 42
-# and L <= 64 too. F > 128 and L > 64 are not probed, and the port sums
-# them left to right (ROADMAP.md, reference caveats).
+# read off its compiled matvec (jax 0.9.0) by tools/probe_flow_order.py: at
+# every F = 43-128 and L = 1-64; at L = 65-128 for F = 48, 64, 96 and 128;
+# and at F = 129-256 for every L = 1-9 and L = 64, plus three L a flow
+# count drawn from 10-63. ``_UNBATCHED_ORDER[F]`` lists (first L, last L,
+# order). Every tree probed there has the FlowOrder form: a head of 32, 48
+# or 64 flows, or a multiple of 32 up to 256, in one of the block orders
+# below, then 1, 2, 4 or 8 tail lanes and up to 8 trailing flows; the gaps
+# between the ranges sum left to right. The probe found left to right at
+# every F <= 42 and L <= 64, and at F = 48 for L = 65-128, too. From F = 129
+# on the orders repeat every 32 flows: F = H + r (H = 32 * (F // 32)) takes
+# the ranges of F = 96 + r with a head of H flows where F = 96 + r has 96
+# (H - 32 where it has 64), its blocks in four runs from L = 9 on. The rest
+# (F > 256; L > 64 at any other F; L = 10-63 between the samples at F >
+# 128) is not probed, and the port sums it left to right (ROADMAP.md,
+# section 3).
+def _head(n_flows: int, chains: int = 1) -> FlowOrder:
+    """A head of ``n_flows`` (a multiple of 32) in XLA:CPU's block order:
+    the blocks in four runs by residue mod 4, (0, 4, 8, ...), (1, 5, 9,
+    ...), (2, 6, ...), (3, 7, ...); in one chain the first two blocks of
+    each run after the first swap places."""
+    m = n_flows // 32
+    runs = [[r + 4 * i for i in range(m)] for r in range(4)]
+    if chains == 1:
+        for run in runs[1:]:
+            run[0], run[1] = run[1], run[0]
+    return FlowOrder(n_flows, tuple(b for run in runs for b in run), chains)
+
+
 _ORDER_48 = FlowOrder(48, (0, 2, 4, 3, 1, 5))
-_ORDER_64 = FlowOrder(64, (0, 4, 5, 1, 6, 2, 7, 3))
-_ORDER_96 = FlowOrder(96, (0, 4, 8, 5, 1, 9, 6, 2, 10, 7, 3, 11))
-_ORDER_128 = FlowOrder(128, (0, 4, 8, 12, 5, 1, 9, 13, 6, 2, 10, 14, 7, 3,
-                             11, 15))
-_ORDER_128_CHAINS = FlowOrder(128, (0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14,
-                                    3, 7, 11, 15), chains=4)
+_ORDER_64 = _head(64)
+_ORDER_96 = _head(96)
+_ORDER_128 = _head(128)
+_ORDER_128_CHAINS = _head(128, chains=4)
 _ORDER_32 = FlowOrder(32, (0, 1, 2, 3))
 # F: ((first L, last L, head, tail lanes, trailing flows), ...)
 _UNBATCHED_ORDER = {F: tuple((lo, hi, head._replace(tail_lanes=W, trailing=T))
@@ -214,7 +232,7 @@ _UNBATCHED_ORDER = {F: tuple((lo, hi, head._replace(tail_lanes=W, trailing=T))
     62: ((1, 64, _ORDER_48, 4, 2),),
     63: ((1, 64, _ORDER_48, 4, 3),),
     64: ((1, 1, _ORDER_64, 1, 0), (2, 8, _ORDER_48, 1, 0),
-         (9, 64, _ORDER_64, 1, 0)),
+         (9, 128, _ORDER_64, 1, 0)),
     65: ((1, 64, _ORDER_64, 1, 0),),
     66: ((1, 64, _ORDER_64, 1, 0),),
     67: ((1, 64, _ORDER_64, 1, 0),),
@@ -262,7 +280,7 @@ _UNBATCHED_ORDER = {F: tuple((lo, hi, head._replace(tail_lanes=W, trailing=T))
          (5, 6, _ORDER_64, 8, 7), (7, 8, _ORDER_64, 4, 3),
          (9, 64, _ORDER_64, 8, 7)),
     96: ((1, 1, _ORDER_96, 1, 0), (2, 8, _ORDER_64, 1, 0),
-         (9, 64, _ORDER_96, 1, 0)),
+         (9, 128, _ORDER_96, 1, 0)),
     97: ((1, 64, _ORDER_96, 1, 0),),
     98: ((1, 64, _ORDER_96, 1, 0),),
     99: ((1, 64, _ORDER_96, 1, 0),),
@@ -310,14 +328,32 @@ _UNBATCHED_ORDER = {F: tuple((lo, hi, head._replace(tail_lanes=W, trailing=T))
           (5, 6, _ORDER_96, 8, 7), (7, 8, _ORDER_96, 4, 3),
           (9, 64, _ORDER_96, 8, 7)),
     128: ((1, 1, _ORDER_128, 1, 0), (2, 8, _ORDER_96, 1, 0),
-          (9, 64, _ORDER_128_CHAINS, 1, 0)),
+          (9, 128, _ORDER_128_CHAINS, 1, 0)),
 }.items()}
+
+
+def _period_rows(F: int) -> tuple:
+    """The ranges of F = 129-256: those of F = 96 + F % 32 with the head of
+    96 (or 64) flows made one of H = 32 * (F // 32) (or H - 32), in one
+    chain up to L = 8 and in four at L = 9-64."""
+    H, r = 32 * (F // 32), F % 32
+    rows = []
+    for lo, hi, order in _UNBATCHED_ORDER[96 + r]:
+        for a, b, chains in ((lo, min(hi, 8), 1), (max(lo, 9), min(hi, 64),
+                                                    4)):
+            if a <= b:
+                rows.append((a, b, _head(order.head + H - 96, chains)._replace(
+                    tail_lanes=order.tail_lanes, trailing=order.trailing)))
+    return tuple(rows)
+
+
+_UNBATCHED_ORDER.update({F: _period_rows(F) for F in range(129, 257)})
 
 
 def flow_order(n_flows: int, n_links: int, n_lanes: int) -> FlowOrder:
     """The order of the sum over flows for B lanes of (F, L): the
-    reference's unbatched order on one lane where it is reproduced, else
-    left to right. The kernel is given the same order."""
+    reference's unbatched order on one lane where it is tabled, else left
+    to right. The kernel is given the same order."""
     if n_lanes == 1:
         for lo, hi, order in _UNBATCHED_ORDER.get(n_flows, ()):
             if lo <= n_links <= hi:

@@ -1,7 +1,14 @@
 """Shared neural layers of the model zoo: RMSNorm and LayerNorm, RoPE and
-Qwen2-VL's multimodal RoPE, attention (prefill and the encoder through the
-flash-attention kernel, decode against the ring cache, cross-attention
-over precomputed K/V), the gated and ungated MLPs and the embeddings.
+Qwen2-VL's multimodal RoPE, attention (prefill, training and the encoder
+through the flash-attention kernel, decode against the ring cache,
+cross-attention over precomputed K/V), the gated and ungated MLPs and the
+embeddings.
+
+Where a gradient is wanted, the kernel's call goes through
+:class:`FlashAttention`, an ``autograd.Function``: its forward launches the
+kernel and keeps only the inputs, its backward recomputes the reference's
+own training form, :func:`chunked_attention` (the online-softmax attention
+of ``repro.models.layers._chunked_attention``), and differentiates that.
 
 Counterpart of ``repro.models.layers``, with its names and layouts:
 attention weights stay (d, heads, head_dim) for ``einsum``, activations
@@ -150,6 +157,51 @@ def _decode_attention(q, k, v, valid):
     return out.reshape(b, sq, h, hd)
 
 
+def _divisor_chunk(n: int, c: int) -> int:
+    """The largest chunk up to ``c`` that divides ``n``."""
+    c = min(c, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
+                      chunk_kv: int):
+    """The reference's training attention (``_chunked_attention``, its
+    rectangular scheme, no offset, every key valid) in plain PyTorch:
+    q (b, sq, h, hd) over k, v (b, skv, n_kv, hd), GQA by head grouping h =
+    kv * group + g, float32 online softmax over key chunks, masked scores
+    -1e30. Returns (b, sq, h, hd) float32."""
+    b, sq, h, hd = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    cq, ck = _divisor_chunk(sq, chunk_q), _divisor_chunk(skv, chunk_kv)
+    n_q = sq // cq
+    qr = q.float().reshape(b, n_q, cq, n_kv, g, hd)
+    q_pos = torch.arange(sq, device=q.device).reshape(n_q, cq, 1)
+    m = torch.full((b, n_q, n_kv, g, cq), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, n_q, n_kv, g, cq, hd), device=q.device)
+    for lo, kb, vb in zip(range(0, skv, ck), k.float().split(ck, dim=1),
+                          v.float().split(ck, dim=1)):
+        s = torch.einsum("bqcngd,bknd->bqngck", qr, kb) * (1.0 / math.sqrt(hd))
+        if causal:
+            kpos = torch.arange(lo, lo + ck, device=q.device)
+            mask = kpos <= q_pos                             # (n_q, cq, ck)
+            if window > 0:
+                mask = mask & (kpos > q_pos - window)
+            s = torch.where(mask[None, :, None, None], s, NEG_INF)
+        m2 = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m2[..., None])
+        corr = torch.exp(m - m2)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqngck,bknd->bqngcd", p,
+                                                   vb)
+        m = m2
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, hd)
+
+
 def _flash(q, k, v, *, causal: bool, window: int = 0):
     """(b, sq, h, hd) queries over (b, skv, n_kv, hd) keys and values
     through ``ops.flash_attention``; returns (b, sq, h, hd)."""
@@ -159,19 +211,56 @@ def _flash(q, k, v, *, causal: bool, window: int = 0):
     return out.reshape(b, h, sq, hd).permute(0, 2, 1, 3)
 
 
+class FlashAttention(torch.autograd.Function):
+    """:func:`_flash` forward (the kernel on the card), the gradient of
+    :func:`chunked_attention` at the same inputs backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk_q: int,
+                chunk_kv: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, chunk_q=chunk_q,
+                        chunk_kv=chunk_kv)
+        return _flash(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(ctx, chunked_attention, grad) + (None,) * 4
+
+
+def recompute_grads(ctx, fn, *grads) -> tuple:
+    """The gradients of ``fn(*saved inputs, **ctx.args)`` for the inputs
+    that want one (None for the rest): ``fn`` is run again under autograd
+    and differentiated against ``grads`` (None: that output unused)."""
+    saved = ctx.saved_tensors
+    want = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_(w) if x is not None else None
+               for x, w in zip(saved, want)]
+        outs = fn(*ins, **ctx.args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
+                 if g is not None]
+        leaves = [x for x, w in zip(ins, want) if w]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], leaves,
+                                       [g for _, g in pairs])
+                   if leaves else ())
+    return tuple(next(got) if w else None for w in want)
+
+
 def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
               cache: KVCache | None = None, cross_kv=None):
     """The reference's attention entry point: returns (y, cache).
 
     Three modes, as the reference's. (a) No cache and no ``cross_kv``: self
-    attention over x (whisper's encoder, ``causal=False``), RoPE applied,
-    through ``ops.flash_attention``. (b) With a cache: a prompt (seq > 1)
-    is prefill: causal or sliding-window attention over the fresh K/V
-    through the kernel, then the last ``min(cache_len, seq)`` keys and
-    values go into the cache; one token is decode: its K/V go into the ring
-    slot ``length % cache_len`` (the oldest, once the ring is full) and it
-    attends the valid slots in plain PyTorch, as the reference computes it
-    outside any kernel. The cache's tensors (views into the model's stacked
+    attention over x (training; whisper's encoder, ``causal=False``), RoPE
+    applied, through ``ops.flash_attention`` (:class:`FlashAttention`). (b)
+    With a cache: a prompt (seq > 1) is prefill: causal or sliding-window
+    attention over the fresh K/V through the kernel, then the last
+    ``min(cache_len, seq)`` keys and values go into the cache; one token is
+    decode: its K/V go into the ring slot ``length % cache_len`` (the
+    oldest, once the ring is full) and it attends the valid slots in plain
+    PyTorch, as the reference computes it outside any kernel. The cache's tensors (views into the model's stacked
     state) are written in place. (c) ``cross_kv=(k, v)``: cross-attention
     of q (its bias included, no RoPE) over every precomputed key, through
     the kernel (non-causal) for a prompt, in plain PyTorch for one token.
@@ -183,10 +272,12 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
         if s == 1:
             out = _decode_attention(q, k, v, k.shape[1])
         else:
-            out = _flash(q, k, v, causal=False)
+            out = FlashAttention.apply(q, k, v, False, 0, cfg.attn_chunk_q,
+                                       cfg.attn_chunk_kv)
     elif cache is None:
-        out = _flash(_rope(q, positions, cfg), _rope(k_new, positions, cfg),
-                     v_new, causal=causal, window=cfg.window)
+        out = FlashAttention.apply(
+            _rope(q, positions, cfg), _rope(k_new, positions, cfg), v_new,
+            causal, cfg.window, cfg.attn_chunk_q, cfg.attn_chunk_kv)
     else:
         q = _rope(q, positions, cfg)
         k_new = _rope(k_new, positions, cfg)

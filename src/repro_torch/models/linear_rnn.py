@@ -7,10 +7,17 @@ Both are the decayed outer-product recurrence
 
 with the decay on the K channels after reading the state plus a bonus u for
 the current token (RWKV, mode "k"), or on the V channels before reading
-(SSD, mode "v"). Prefill runs the chunked form through the CUDA kernels
-(``ops.rwkv6_scan``, ``ops.ssd_scan``) from the zero state; a decode step
-runs the sequential form (``gla_ref``) in plain PyTorch, as the reference
-does (``chunked=not decode``).
+(SSD, mode "v"). Prefill and training run the chunked form through the
+CUDA kernels (``ops.rwkv6_scan``, ``ops.ssd_scan``) from the zero state; a
+decode step runs the sequential form (``gla_ref``) in plain PyTorch, as the
+reference does (``chunked=not decode``). Where a gradient is wanted, the
+kernel's call goes through :class:`GlaScan`: the kernel forward, the
+gradient of the reference's chunked form (:func:`gla_chunked_plain`)
+backward, recomputed from the saved inputs in float64. The chunked form
+divides by the chunk's cumulative decay Qs, and the gradient of v / Qs
+holds v / Qs**2: in float32 that overflows once Qs falls below about 1e-19
+(the reference's own gradient turns to inf and NaN there, its forward still
+finite), in float64 only where the float32 forward itself fails.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.layers import recompute_grads
 
 DECAY_MIN = math.exp(-8.0)
 
@@ -59,11 +67,59 @@ def _chunk(s: int, chunk: int) -> int:
     return c
 
 
-def gla_chunked(q, k, v, decay, bonus=None, mode="k", chunk=64):
-    """Chunked evaluation from the zero state through the CUDA kernel (the
-    plain version on the CPU), at the chunk ``gla_chunked``'s divisor rule
-    picks; layouts as ``gla_ref``. Returns (out (b, s, h, dv) in q's dtype,
-    state (b, h, dk, dv) float32)."""
+def gla_chunked_plain(q, k, v, decay, bonus=None, mode="k", chunk=64,
+                      dtype=torch.float32):
+    """The reference's chunked form (``repro.models.linear_rnn.gla_chunked``
+    from the zero state) in plain PyTorch, in ``dtype`` (the reference's:
+    float32): within a chunk dense products, across chunks the state.
+    Layouts as ``gla_ref``; returns (out (b, s, h, dv), state (b, h, dk,
+    dv)), both in ``dtype``."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    c = _chunk(s, chunk)
+    n = s // c
+    qf, kf, vf = (x.to(dtype).reshape(b, n, c, h, x.shape[-1])
+                  for x in (q, k, v))
+    wd = decay.to(dtype).reshape(b, n, c, h, decay.shape[-1])
+    dev = q.device
+    state = torch.zeros((b, h, dk, dv), dtype=dtype, device=dev)
+    tri_lo = torch.tril(torch.ones((c, c), dtype=dtype, device=dev),
+                        diagonal=-1)
+    tri_inc = torch.tril(torch.ones((c, c), dtype=dtype, device=dev))
+    eye = torch.eye(c, dtype=dtype, device=dev)
+    outs = []
+    # one unbind a tensor: its backward stacks the chunks' gradients once,
+    # where an index a chunk would fill and add a whole-size gradient each
+    for qc, kc, vc, wc in zip(*(x.unbind(1) for x in (qf, kf, vf, wd))):
+        qs = torch.exp(torch.cumsum(torch.log(wc), dim=1))     # inclusive
+        last = qs[:, -1]
+        if mode == "k":
+            r_t = qc * (qs / wc)                                # exclusive
+            k_t = kc / qs
+            a = torch.einsum("bihk,bjhk->bhij", r_t, k_t) * tri_lo
+            if bonus is not None:
+                diag = torch.einsum("bihk,hk,bihk->bhi", qc, bonus.to(dtype),
+                                    kc)
+                a = a + diag[..., None] * eye
+            outs.append(torch.einsum("bihk,bhkv->bihv", r_t, state)
+                        + torch.einsum("bhij,bjhv->bihv", a, vc))
+            state = (state * last[..., None]
+                     + torch.einsum("bjhk,bjhv->bhkv", last[:, None] * k_t,
+                                    vc))
+        else:
+            bm = torch.einsum("bihk,bjhk->bhij", qc, kc) * tri_inc
+            v_t = vc / qs
+            outs.append(qs * (torch.einsum("bihk,bhkv->bihv", qc, state)
+                              + torch.einsum("bhij,bjhv->bihv", bm, v_t)))
+            state = last[:, :, None, :] * (
+                state + torch.einsum("bjhk,bjhv->bhkv", kc, v_t))
+    return torch.stack(outs, dim=1).reshape(b, s, h, dv), state
+
+
+def _gla_kernel(q, k, v, decay, bonus=None, mode="k", chunk=64):
+    """The chunked form through ``ops.rwkv6_scan`` (mode "k") or
+    ``ops.ssd_scan`` (mode "v"); layouts as ``gla_ref``. Returns (out (b, s,
+    h, dv) in q's dtype, state (b, h, dk, dv) float32)."""
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     c = _chunk(s, chunk)
@@ -79,6 +135,32 @@ def gla_chunked(q, k, v, decay, bonus=None, mode="k", chunk=64):
                                   chunk=c)
     return (out.reshape(b, h, s, dv).permute(0, 2, 1, 3),
             state.reshape(b, h, dk, dv))
+
+
+class GlaScan(torch.autograd.Function):
+    """:func:`_gla_kernel` forward, the gradient of
+    :func:`gla_chunked_plain` in float64 at the same inputs backward (of
+    the output and, where it is used, the final state)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, decay, bonus, mode: str, chunk: int):
+        ctx.save_for_backward(q, k, v, decay, bonus)
+        ctx.args = dict(mode=mode, chunk=chunk, dtype=torch.float64)
+        ctx.set_materialize_grads(False)
+        return _gla_kernel(q, k, v, decay, bonus, mode=mode, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_state):
+        return recompute_grads(ctx, gla_chunked_plain, grad_out,
+                                 grad_state) + (None, None)
+
+
+def gla_chunked(q, k, v, decay, bonus=None, mode="k", chunk=64):
+    """Chunked evaluation from the zero state through the CUDA kernel (the
+    plain version on the CPU), at the chunk ``gla_chunked``'s divisor rule
+    picks, through :class:`GlaScan`; layouts as ``gla_ref``. Returns (out
+    (b, s, h, dv) in q's dtype, state (b, h, dk, dv) float32)."""
+    return GlaScan.apply(q, k, v, decay, bonus, mode, chunk)
 
 
 def gla_decode_step(q, k, v, decay, state, bonus=None, mode="k"):

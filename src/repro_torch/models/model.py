@@ -11,12 +11,20 @@ reference's tree paths (``embed.tok``, ``layers.{i}.attn.wq``,
 layers on a leading axis, the port keeps one module per layer) and exposes
 
   init(generator)                   random weights at the published shapes
+  loss_fn(batch)                    -> (loss + AUX_WEIGHT * aux, {"loss",
+                                        "aux", "tokens"})
   prefill_fn(batch)                 -> (last-token logits (b, vocab) float32,
                                         decode state)
   decode_fn(state, tokens, length)  -> (logits, state)
 
 ``batch`` holds ``tokens`` (b, s), and ``frames`` (b, S, d) for encdec,
-optionally ``patch_embeds`` (b, P, d) and ``positions3`` (3, b, s) for vlm.
+optionally ``patch_embeds`` (b, P, d) and ``positions3`` (3, b, s) for vlm;
+``loss_fn`` also reads ``targets`` (b, s), those < 0 masked. The parameters
+are made with ``requires_grad`` off, so serving records no graph; a trainer
+turns it on (``model.requires_grad_(True)``). ``loss_fn`` runs every block
+under ``torch.utils.checkpoint`` where ``cfg.remat == "full"``, as the
+reference's ``jax.checkpoint``, so the block's forward (its kernels
+included) runs again in the backward.
 The decode state keeps the reference's structure: ``kv``, one ``KVCache``
 whose tensors stack the layers on a leading axis; ``kv_first`` for the
 leading dense layers of a moe model; ``rnn``, a dict of stacked recurrent
@@ -25,8 +33,7 @@ for encdec ``cross``, the stacked cross-attention K and V of the encoder's
 output, in place of ``rnn``. Prefill allocates it; each layer writes its
 slice in place, and ``decode_fn`` updates it in place (the reference
 returns a new tree), which saves a copy of the cache per token. The
-reference's ``lax.scan`` over layers is a loop over the module lists. Not
-ported yet (ROADMAP.md): ``loss_fn``.
+reference's ``lax.scan`` over layers is a loop over the module lists.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -42,6 +50,9 @@ from repro_torch.models import linear_rnn as R
 from repro_torch.models import moe as M
 
 _F32 = torch.float32
+
+AUX_WEIGHT = 0.01
+LOSS_CHUNKS = 8             # seq chunks of the chunked loss
 
 
 # ======================================================================== init
@@ -158,9 +169,10 @@ class _Leaves(nn.Module):
 # ================================================================= block apply
 def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
                  cross_kv=None, rnn_state=None, decode=False):
-    """Returns (x, cache, new_rnn_state). Prefill (``decode`` False) starts
-    the recurrences from the zero state; decode continues ``rnn_state``.
-    The moe layer's auxiliary loss is dropped: serving does not read it."""
+    """Returns (x, aux, cache, new_rnn_state): ``aux`` the moe layer's
+    load-balancing loss, None for the other kinds. Prefill and training
+    (``decode`` False) start the recurrences from the zero state; decode
+    continues ``rnn_state``."""
     if kind == "rwkv":
         st = rnn_state if decode else {}
         h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
@@ -171,7 +183,8 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
         h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
         y, cm_last = R.rwkv_channel_mix(p.cmix, h,
                                         shift_prev=st.get("cm_prev"))
-        return x + y, cache, {"S": s2, "tm_prev": tm_last, "cm_prev": cm_last}
+        return (x + y, None, cache,
+                {"S": s2, "tm_prev": tm_last, "cm_prev": cm_last})
 
     if kind in ("enc", "dec"):
         h = L.layernorm(x, p.ln1, p.lnb1, cfg.norm_eps)
@@ -183,7 +196,7 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
             x = x + L.attention(p.xattn, h, cfg, positions=positions,
                                 cross_kv=cross_kv)[0]
         h = L.layernorm(x, p.ln2, p.lnb2, cfg.norm_eps)
-        return x + L.mlp(p.mlp, h), cache, None
+        return x + L.mlp(p.mlp, h), None, cache, None
 
     new_rnn = None
     h = L.rmsnorm(x, p.ln1, cfg.norm_eps)
@@ -201,8 +214,12 @@ def _apply_block(p, x, cfg: ModelConfig, kind: str, *, positions, cache=None,
         y = attn_y
     x = x + y
     h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
-    y = M.moe_ffn(p.moe, h, cfg)[0] if kind == "moe" else L.mlp(p.mlp, h)
-    return x + y, cache, new_rnn
+    aux = None
+    if kind == "moe":
+        y, aux = M.moe_ffn(p.moe, h, cfg)
+    else:
+        y = L.mlp(p.mlp, h)
+    return x + y, aux, cache, new_rnn
 
 
 # ==================================================================== Model
@@ -282,7 +299,7 @@ class Model(nn.Module):
         return torch.stack([pos] * 3) if self.cfg.m_rope else pos
 
     # ------------------------------------------------------------- encoders
-    def _encode(self, batch: dict):
+    def _encode(self, batch: dict, remat: bool = False):
         """Whisper's encoder over ``frames`` (b, S, d): the frames in the
         model's dtype plus sinusoidal positions, the encoder layers, the
         final LayerNorm."""
@@ -292,7 +309,7 @@ class Model(nn.Module):
         b, s, d = frames.shape
         x = frames + L.sinusoid_positions(s, d, self.device).to(frames.dtype)
         pos = torch.arange(s, device=self.device)[None].expand(b, s)
-        x = self._run(self.encoder, "enc", x, pos)
+        x = self._run(self.encoder, "enc", x, pos, remat=remat)[0]
         return L.layernorm(x, self.enc_norm, self.enc_normb, cfg.norm_eps)
 
     def _cross_kv(self, enc_out):
@@ -303,6 +320,40 @@ class Model(nn.Module):
                         torch.einsum("bsd,dhk->bshk", enc_out, p.xattn["wv"]))
                        for p in self.layers))
         return torch.stack(ks), torch.stack(vs)
+
+    # ----------------------------------------------------------------- train
+    def loss_fn(self, batch: dict):
+        """The training loss of ``batch`` (``targets`` beside the inputs):
+        returns (loss + AUX_WEIGHT * aux, {"loss", "aux", "tokens"}), all
+        float32 scalars. ``loss`` is the mean cross-entropy over the targets
+        that are >= 0 (:func:`_chunked_xent`), ``aux`` the moe layers'
+        load-balancing losses summed (the leading dense layers' after the
+        rest, as the reference's), ``tokens`` the count of targets."""
+        cfg = self.cfg
+        remat = cfg.remat == "full"
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        b, s = tokens.shape
+        pos = self._positions(batch, b, s)
+        if cfg.family == "encdec":
+            cross = self._cross_kv(self._encode(batch, remat=remat))
+            # the reference's _dec_scan: layer i attends cross K/V i
+            x, aux = self._run(self.layers, "dec", L.embed(self.embed, tokens),
+                               pos, cross=cross, remat=remat)
+        else:
+            x = self._embed_inputs(batch, tokens)
+            first_aux = torch.zeros((), dtype=_F32, device=self.device)
+            if cfg.moe_first_dense:
+                x, first_aux = self._run(self.first_layers,
+                                         "dense_ffn_moe_arch", x, pos,
+                                         remat=remat)
+            x, aux = self._run(self.layers, _block_kind(cfg), x, pos,
+                               remat=remat)
+            aux = aux + first_aux
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        targets = torch.as_tensor(batch["targets"], device=self.device).long()
+        loss, ntok = _chunked_xent(self.embed, x, targets)
+        return loss + AUX_WEIGHT * aux, {"loss": loss, "aux": aux,
+                                         "tokens": ntok}
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -317,7 +368,7 @@ class Model(nn.Module):
             cross = self._cross_kv(self._encode(batch))
             caches = self._self_caches(b, cfg.decoder_len)
             x = self._run(self.layers, "dec", L.embed(self.embed, tokens),
-                          pos, caches, cross=cross)
+                          pos, caches, cross=cross)[0]
             return self._logits(x[:, -1:]), {"kv": caches, "cross": cross}
         x = self._embed_inputs(batch, tokens)
         state = {}
@@ -325,9 +376,9 @@ class Model(nn.Module):
             state["kv_first"] = self._self_caches(b, self._cache_len(s),
                                                   n=cfg.moe_first_dense)
             x = self._run(self.first_layers, "dense_ffn_moe_arch", x, pos,
-                          state["kv_first"])
+                          state["kv_first"])[0]
         caches, rnn = self._inner_state(b, self._cache_len(s))
-        x = self._run(self.layers, _block_kind(cfg), x, pos, caches, rnn)
+        x = self._run(self.layers, _block_kind(cfg), x, pos, caches, rnn)[0]
         state.update(kv=caches, rnn=rnn)
         return self._logits(x[:, -1:]), state
 
@@ -346,31 +397,41 @@ class Model(nn.Module):
             pos = torch.stack([pos] * 3)
         if cfg.family == "encdec":
             x = self._run(self.layers, "dec", x, pos, state["kv"],
-                          cross=state["cross"], decode=True)
+                          cross=state["cross"], decode=True)[0]
             return self._logits(x), state
         if cfg.moe_first_dense:
             x = self._run(self.first_layers, "dense_ffn_moe_arch", x, pos,
-                          state["kv_first"], decode=True)
+                          state["kv_first"], decode=True)[0]
         x = self._run(self.layers, _block_kind(cfg), x, pos, state["kv"],
-                      state["rnn"], decode=True)
+                      state["rnn"], decode=True)[0]
         return self._logits(x), state
 
     def _run(self, layers, kind: str, x, pos, caches=None, rnn=None, *,
-             cross=None, decode: bool = False):
+             cross=None, decode: bool = False, remat: bool = False):
         """The layers in order, layer i on slice i of the stacked caches,
-        recurrent states and cross K/V."""
+        recurrent states and cross K/V; each layer under
+        ``torch.utils.checkpoint`` if ``remat``. Returns (x, the layers'
+        auxiliary losses summed in layer order from a float32 0)."""
+        aux = torch.zeros((), dtype=_F32, device=x.device)
         for i, p in enumerate(layers):
             cache = None if caches is None else L.KVCache(
                 caches.k[i], caches.v[i], caches.length[i])
             rnn_i = None if rnn is None else {k: v[i] for k, v in rnn.items()}
-            x, _, new_rnn = _apply_block(
-                p, x, self.cfg, kind, positions=pos, cache=cache,
-                cross_kv=None if cross is None else (cross[0][i], cross[1][i]),
-                rnn_state=rnn_i, decode=decode)
+            cross_i = None if cross is None else (cross[0][i], cross[1][i])
+            if remat:
+                x, a, _, new_rnn = checkpoint(
+                    _apply_block, p, x, self.cfg, kind, positions=pos,
+                    cross_kv=cross_i, use_reentrant=False)
+            else:
+                x, a, _, new_rnn = _apply_block(
+                    p, x, self.cfg, kind, positions=pos, cache=cache,
+                    cross_kv=cross_i, rnn_state=rnn_i, decode=decode)
+            if a is not None:
+                aux = aux + a
             if rnn is not None:
                 for k, v in new_rnn.items():
                     rnn[k][i].copy_(v)
-        return x
+        return x, aux
 
     def _logits(self, x):
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
@@ -422,6 +483,28 @@ class Model(nn.Module):
                                        device=self.device),
             }
         return caches, rnn
+
+
+# ------------------------------------------------------------- chunked loss
+def _chunked_xent(embed, x, targets):
+    """Cross-entropy over the vocab without the whole (b, s, vocab) logits
+    at once: ``gcd(LOSS_CHUNKS, s)`` chunks of the sequence, each chunk's
+    logits in float32, a max-shifted log-sum-exp. Targets < 0 are masked.
+    Returns (the summed loss / max(token count, 1), the token count)."""
+    s = x.shape[1]
+    c = s // math.gcd(LOSS_CHUNKS, s)
+    losses, counts = [], []
+    for lo in range(0, s, c):
+        tb = targets[:, lo:lo + c]
+        logits = L.unembed(embed, x[:, lo:lo + c]).float()     # (b, c, v)
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        ll = torch.gather(logits, -1, tb.clamp_min(0)[..., None])[..., 0]
+        mask = (tb >= 0).float()
+        losses.append(((lse - ll) * mask).sum())
+        counts.append(mask.sum())
+    total = torch.stack(counts).sum()
+    return torch.stack(losses).sum() / torch.clamp_min(total, 1.0), total
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

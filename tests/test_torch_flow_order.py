@@ -2,19 +2,24 @@
 XLA (see tests/test_torch_network.py for the probe and the reason).
 
 ``tools/probe_flow_order.py`` read the reference's tree at every F = 43-128
-and L = 1-64 (about 2.4 CPU-hours); every tree there has the ``FlowOrder``
-form and is tabled in ``kernels/ref.py::_UNBATCHED_ORDER``. Here, within
-the test budget:
+and L = 1-64 (about 2.4 CPU-hours), at L = 65-128 for F = 48, 64, 96 and
+128, and at F = 129-256 for L = 1-9 and 64 and three sampled L each; every
+tree there has the ``FlowOrder`` form and is tabled in
+``kernels/ref.py::_UNBATCHED_ORDER``. Here, within the test budget:
 
 * the workload bridge's shapes (2n flows over n links) at n = 27, 40 and 45
   in full: every pair of the tree, and the max-min rates bit for bit;
-* both ends of every tabled range of L (those tests/test_torch_maxmin.py
-  does not hold against the reference already): the port's tree checked
-  at one pair of flows under each of its nodes (so every node's size is
-  read off the reference), then the flow sums bit for bit on random
-  inputs; the max-min rates bit for bit at a range end of each head form;
-* a shape the probe did not cover, where the port sums left to right and
-  the reference does not: the rates' gap, measured and bounded.
+  then the table's new ends, (128, 128) and (256, 64), the same way;
+* both ends of every tabled range of L up to F = 128 (those
+  tests/test_torch_maxmin.py does not hold against the reference
+  already), and a seeded sample of 32 range ends from F = 129 on: the
+  port's tree checked at one pair of flows under each of its nodes (so
+  every node's size is read off the reference), then the flow sums bit for
+  bit on random inputs; the max-min rates bit for bit at a range end of
+  each head form;
+* shapes just past the table, where the port sums left to right and the
+  reference does not: the trees differ, and the rates' gap is measured
+  and bounded.
 
 The comparisons compile JAX code at each shape, so this file holds two
 tests (see test_torch_cache.py).
@@ -118,28 +123,39 @@ def full_tree_equal(F, L) -> bool:
 def test_bridge_shapes_and_the_untabled_gap():
     """The workload bridge's shapes of fault 1: the whole tree (at n = 27
     also as ``reference_sum_tree`` reads it, one pair a call on link 0),
-    and the rates bit for bit. Then (60, 65), one link more than the probe
-    covered: the reference sums 60 flows in its tree there, the port left
-    to right, and the rates differ in some lanes, by at most 8 ulps."""
+    and the rates bit for bit; the same at the table's new ends, 128 flows
+    over 128 links and 256 over 64. Then shapes one past them, and (60,
+    65): the reference sums in its tree there, the port left to right, and
+    the rates differ in some lanes, by at most 16 ulps (257 flows over 8
+    links, 12 lanes), 8 ulps (160 over 65, 12 lanes; 60 over 65, 24
+    lanes); at 128 flows over 129 links the trees differ."""
     assert (reference_sum_tree(54, 27) == port_sum_tree(54, 27)).all()
-    for n in (27, 40, 45):
-        assert tref.flow_order(2 * n, n, 1) != tref.LEFT_TO_RIGHT
-        assert full_tree_equal(2 * n, n)
-        assert _one_lane_ulps(2 * n, n, 12, n) == (0, 0)
-    assert tref.flow_order(60, 65, 1) == tref.LEFT_TO_RIGHT
-    assert not full_tree_equal(60, 65)
-    worst, differ = _one_lane_ulps(60, 65, 24, 60)
-    assert differ > 0 and worst <= 8
+    for F, L in ((54, 27), (80, 40), (90, 45), (128, 128), (256, 64)):
+        assert tref.flow_order(F, L, 1) != tref.LEFT_TO_RIGHT
+        assert full_tree_equal(F, L)
+        assert _one_lane_ulps(F, L, 12, L) == (0, 0)
+    for F, L, lanes, ulps in ((257, 8, 12, 16), (160, 65, 12, 8),
+                              (60, 65, 24, 8), (128, 129, 0, 0)):
+        assert tref.flow_order(F, L, 1) == tref.LEFT_TO_RIGHT
+        assert not full_tree_equal(F, L)
+        if lanes:
+            worst, differ = _one_lane_ulps(F, L, lanes, F)
+            assert differ > 0 and worst <= ulps, (F, L)
 
 
 def test_every_tabled_range_end_sums_as_the_reference():
     ends = sorted({(F, L) for F, ranges in tref._UNBATCHED_ORDER.items()
                    for lo, hi, _ in ranges for L in (lo, hi)})
-    assert len(ends) > 280
-    for F, L in sorted(set(ends) - set(TABLED)):
+    assert len(ends) > 900
+    low = [(F, L) for F, L in ends if F <= 128]
+    assert len(low) > 280
+    high = [e for e in ends if e[0] > 128]
+    pick = np.random.default_rng(26).choice(len(high), 32, replace=False)
+    for F, L in sorted(set(low) - set(TABLED)) + [high[i] for i in pick]:
         check_shape(F, L, F * 100 + L)
     # the rates, bit for bit, at a range end of each head form
-    for F, L in ((43, 1), (53, 64), (60, 8), (80, 8), (127, 5), (128, 64)):
+    for F, L in ((43, 1), (53, 64), (60, 8), (80, 8), (127, 5), (128, 9),
+                 (96, 128), (156, 5), (200, 1), (255, 64)):
         assert (F, L) in ends
         assert _one_lane_ulps(F, L, 4, F * 100 + L) == (0, 0), (F, L)
 

@@ -140,8 +140,9 @@ def test_one_lane_order_at_tabled_link_counts(F, L):
 def test_flow_order_is_the_kernels_contract():
     """One lane at a tabled (F, L) takes its tabled order, every other case
     left to right; each order is one the kernel takes: a permutation of the
-    head's 8-flow blocks (packed four bits a block), runs that divide it,
-    and a tail that divides into its interleaved sums."""
+    head's 8-flow blocks (up to 32, packed a byte a block in four 64-bit
+    words), runs that divide it, and a tail that divides into its
+    interleaved sums."""
     assert ref.flow_order(128, 4, 1) == ref._ORDER_96
     assert ref.flow_order(128, 1, 1) == ref._ORDER_128
     assert ref.flow_order(128, 64, 1) == ref._ORDER_128_CHAINS
@@ -149,20 +150,25 @@ def test_flow_order_is_the_kernels_contract():
     assert ref.flow_order(60, 8, 1) == ref._ORDER_48._replace(
         tail_lanes=4, trailing=4)
     assert ref.flow_order(60, 65, 1) == ref.LEFT_TO_RIGHT
-    assert ref.flow_order(129, 4, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(128, 128, 1) == ref._ORDER_128_CHAINS
+    assert ref.flow_order(128, 129, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(256, 1, 1) == ref._head(256)
+    assert ref.flow_order(256, 64, 1) == ref._head(256, chains=4)
+    assert ref.flow_order(256, 65, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(257, 4, 1) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(42, 7, 1) == ref.LEFT_TO_RIGHT
     for F, ranges in ref._UNBATCHED_ORDER.items():
         for lo, hi, order in ranges:
-            assert 1 <= lo <= hi <= 64
-            packed = bs._pack_order(order, F, 16)
-            assert [(packed >> (4 * k)) & 15
+            assert 1 <= lo <= hi <= (128 if F <= 128 else 64)
+            words = bs._pack_order(order, F, 32)
+            assert [(words[k // 8] >> (8 * (k % 8))) & 255
                     for k in range(order.head // 8)] == list(order.blocks)
     for bad in (ref.FlowOrder(48, (0, 1, 2, 3, 4, 4)),
                 ref.FlowOrder(48, (0, 1, 2, 3, 4, 5), chains=4),
                 ref.FlowOrder(48, (0, 1, 2, 3, 4, 5), tail_lanes=4),
                 ref.FlowOrder(0, (), tail_lanes=2)):
         with pytest.raises(ValueError, match="flow order"):
-            bs._pack_order(bad, 50, 16)
+            bs._pack_order(bad, 50, 32)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -3,14 +3,14 @@ for bit, beyond 32 agents.
 
 XLA:CPU sums a row of A values in chunks from 33 agents on
 (``repro_torch.core.scheduler.sum_chunks``, read by
-``tools/probe_sum_order.py`` at every A = 33-128). The probe's own reading
+``tools/probe_sum_order.py`` at every A = 33-512). The probe's own reading
 of the reference's tree equals the rule at both ends of each form (two,
-three and four chunks); ``_sum_last``, the row sums and scores of
-``placement_scores`` and ``rebalance``'s mean equal ``jnp.sum``,
-``jnp.mean`` and the reference's functions bit for bit there and at 48 and
-100 agents, on values of mixed magnitudes whose sums depend on the order.
-Beyond 128 agents the port sums left to right, and the gap to the
-reference stays within a bound.
+three and four chunks, and at 129 and 512); ``_sum_last``, the row sums
+and scores of ``placement_scores`` and ``rebalance``'s mean equal
+``jnp.sum``, ``jnp.mean`` and the reference's functions bit for bit there,
+at 48 and 100 agents and at 129, 160, 256 and 512, on values of mixed
+magnitudes whose sums depend on the order. Beyond 512 agents the port sums
+left to right, and the gap to the reference stays within a bound.
 
 The reference's functions compile once per shape (a few seconds in all),
 so this file holds two tests (see test_torch_engine.py).
@@ -101,12 +101,41 @@ def test_sums_scores_and_mean_equal_reference_bit_for_bit():
 
 
 def test_unprobed_agent_counts_gap_is_bounded():
-    """Beyond 128 agents the port sums left to right; on values of mixed
-    magnitudes it stays within 16 float32 steps of the reference, and
-    differs somewhere (the order is not the reference's there)."""
+    """From 129 to 512 agents, once unprobed (the port summed left to right
+    there), the probe read the same chunk rule at every count: the port
+    equals the reference bit for bit at 129, 160, 256 and 512 agents (the
+    probe's tree at 129 and 512; ``_sum_last`` against ``jnp.sum`` of a
+    vector and of an (A, A) matrix's rows, ``placement_scores``, and
+    ``rebalance``'s mean). Beyond 512 the port sums left to right; on
+    values of mixed magnitudes it stays within 16 float32 steps of the
+    reference, and differs somewhere (the order is not the reference's
+    there)."""
+    assert tsch.PROBED_AGENTS == 512
+    assert tsch.sum_chunks(512) == [32] * 16
+    for A in (129, 512):
+        got = probe_sum_order.probe_rows(A)
+        assert probe_sum_order.chunks_of(got) == tsch.sum_chunks(A), A
     rng = np.random.default_rng(1)
+    for A in (129, 160, 256, 512):
+        assert len(tsch.sum_chunks(A)) == -(-A // 32)
+        x = mixed(rng, (A,))
+        np.testing.assert_array_equal(bits(tsch._sum_last(t_(x))),
+                                      bits(jnp.sum(jnp.asarray(x))))
+        d = mixed(rng, (A, A))
+        perf = mixed(rng, (A,))
+        np.testing.assert_array_equal(
+            bits(tsch._sum_last(t_(d))), bits(jnp.sum(jnp.asarray(d), 1)))
+        part = rng.integers(0, 2, A) > 0
+        np.testing.assert_array_equal(
+            bits(tsch.placement_scores(t_(d), t_(part), t_(perf))),
+            bits(jsch.placement_scores(jnp.asarray(d), jnp.asarray(part),
+                                       jnp.asarray(perf))),
+            err_msg=f"scores A={A}")
+        mean = tsch._sum_last(t_(perf)) * float(np.float32(1) / np.float32(A))
+        np.testing.assert_array_equal(bits(mean),
+                                      bits(jnp.mean(jnp.asarray(perf))))
     worst, differ = 0, 0
-    for A in (129, 160, 256):
+    for A in (513, 640):
         assert tsch.sum_chunks(A) == [A]
         d = mixed(rng, (64, A))
         got = tsch._sum_last(t_(d)).numpy()
