@@ -206,6 +206,17 @@ results when they need them. Phases, each of which raises on failure:
    (busy share, the costliest device ops); then ``python -m
    repro_torch.launch.train --arch smollm-135m --full --steps 30`` on the
    card, whose last 10 steps' mean loss is below its first 10's;
+4r. the roofline: the dry run (``launch/dryrun.py``, on ``meta`` with a
+   one-chip mesh) counts the steps phases 4t and 4s timed (hymba-1.5b
+   whole and rwkv6-7b at 8 layers, train, B 4 x S 2048, remat "full"; the
+   hymba, rwkv6 and moonshot admits of 4 x 2048) and prints each one's
+   compute and memory terms on the H100's constants, the bound (the
+   larger), ``useful_ratio``, the measured ms, measured / bound and
+   model_flops / peak / measured; it fails if a measured step beats its
+   bound. Then the dry run of smollm-135m's train_4k on the two-pod mesh
+   into a temporary directory (its all-reduce bytes nonzero), whose record
+   ``simulate workload`` runs on the card and on the CPU: equal lines,
+   ``maxmin_rates`` launched;
 6. a JSON line of the kernels, then the card's name and power limit, then
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -259,6 +270,13 @@ TF32_OPS_PER_S = 495e12
 # centres": one Tier-0, 13 Tier-1 centres, about 170 Tier-2 sites), cut to 4
 # Tier-2 sites per Tier-1; the builder calls of `simulate t0t1`.
 N_T1, T2_PER_T1 = 13, 4
+# Phase 4t's full-width steps: (arch, layer cut), bfloat16, B x S, remat
+# "full"; phase 4r bounds them and the admits of ROOFLINE_ADMITS (phase 4s)
+# by the dry run's count on a one-chip mesh.
+TRAIN_FULL = (("hymba-1.5b", {}), ("rwkv6-7b", dict(n_layers=8)))
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 3
+ROOFLINE_ADMITS = ("hymba-1.5b", "rwkv6-7b", "moonshot-v1-16b-a3b")
+ONE_CHIP = {"data": 1, "model": 1}
 # Phase 4t's families: one train step each at its smoke config in float32,
 # the card (kernels) against the CPU run of the worker processes (plain
 # versions), on the same weights and batch.
@@ -1525,6 +1543,8 @@ def _cpu_job(job: str):
         out = zoo_run(what, "cpu")
     elif kind == "train":
         out = train_run(what, "cpu")
+    elif kind == "roofline":
+        out = roofline_record(*what.split())
     elif kind == "cli":
         from repro_torch.launch import simulate
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1543,7 +1563,9 @@ CPU_JOBS = ("tiered cpu", "tiered oracle", "workload cpu", "cache cpu",
             *(f"cli t0t1 {' '.join(flags)}" for flags in T0T1_RUNS.values()),
             "zoo hymba-1.5b", "zoo rwkv6-7b", "zoo moonshot-v1-16b-a3b",
             "zoo whisper-large-v3", "zoo qwen2-vl-72b",
-            *(f"train {arch}" for arch in TRAIN_FAMILIES))
+            *(f"train {arch}" for arch in TRAIN_FAMILIES),
+            *(f"roofline {arch} train" for arch, _ in TRAIN_FULL),
+            *(f"roofline {arch} prefill" for arch in ROOFLINE_ADMITS))
 
 
 class Background:
@@ -3843,9 +3865,6 @@ TRAIN_TC = dict(learning_rate=1e-3, warmup_steps=1)
 TRAIN_LOSS_TOL = dict(atol=1e-4, rtol=1e-4)
 TRAIN_REL_ATOL, TRAIN_RTOL = 1e-4, 1e-3
 TRAIN_UPDATE_MARGIN, TRAIN_UPDATE_RTOL = 10.0, 1e-3
-# the full-width steps: (arch, layer cut), bfloat16, B x S, remat "full"
-TRAIN_FULL = (("hymba-1.5b", {}), ("rwkv6-7b", dict(n_layers=8)))
-TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 3
 
 
 def train_inputs(cfg) -> dict:
@@ -4172,6 +4191,103 @@ def phase_train(card: str, bg) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 4r: the roofline
+def roofline_record(arch: str, mode: str) -> dict:
+    """The dry run's record of a step an earlier phase times, counted on
+    ``meta`` with a one-chip mesh: ``mode`` "train" (``TRAIN_FULL``'s cut,
+    B ``TRAIN_B`` x S ``TRAIN_S``) or "prefill" (an admit of 4 x 2048, the
+    cache's 16 slots of headroom). Run in a worker process
+    (``_cpu_job("roofline <arch> <mode>")``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    if mode == "train":
+        S, B, over = TRAIN_S, TRAIN_B, dict(TRAIN_FULL)[arch]
+    else:
+        S, B, over = 2048, 4, dict(cache_headroom=16)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, ShapeConfig(mode, S, B, mode), "single",
+                          overrides=over or None, mesh=ONE_CHIP,
+                          verbose=False)
+    rec["count_s"] = time.perf_counter() - t0
+    rec["cut"], rec["B"], rec["S"] = over, B, S
+    return rec
+
+
+def step_bound(rec: dict, mode: str, measured_ms: float, card: str) -> dict:
+    """A timed step against its dry-run record: the compute and memory
+    terms on the H100's constants, the bound (the larger), the useful share
+    of the counted work, measured / bound and model_flops / peak /
+    measured. A measured step shorter than its bound means the count
+    reckons work that does not run: the phase fails."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    arch, r = rec["arch"], rec["roofline"]
+    bound_ms = max(r["t_compute_s"], r["t_memory_s"]) * 1e3
+    mfu = r["model_flops"] / PEAK_FLOPS_BF16 / (measured_ms / 1e3)
+    print(f"[roofline] {arch} {mode} ({rec['cut'] or 'whole'}, B {rec['B']} "
+          f"x S {rec['S']}, bfloat16): counted {rec['count']['flops']} FLOPs "
+          f"and {rec['count']['dot_bytes']} dot bytes on meta in "
+          f"{rec['count_s']:.1f} s (a worker process); t_compute "
+          f"{r['t_compute_s'] * 1e3:.3f} ms, t_memory "
+          f"{r['t_memory_s'] * 1e3:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({r['bottleneck']}), useful_ratio {r['useful_ratio']:.4f}; "
+          f"measured {measured_ms:.3f} ms = {measured_ms / bound_ms:.3f} x "
+          f"the bound; model_flops / peak / measured {mfu:.4f} (bounds from "
+          f"counts and H100 datasheet constants; measured on {card})",
+          flush=True)
+    if measured_ms < bound_ms:
+        raise AssertionError(f"{arch} {mode}: measured {measured_ms:.3f} ms "
+                             f"beats its bound {bound_ms:.3f} ms")
+    return dict(bound_ms=bound_ms, measured_ms=measured_ms, mfu=mfu,
+                useful_ratio=r["useful_ratio"], t_compute_s=r["t_compute_s"],
+                t_memory_s=r["t_memory_s"])
+
+
+def phase_roofline(card: str, trained: dict, admitted: dict,
+                   bg: Background) -> dict:
+    """Phase 4r: the dry run's bounds of the steps phases 4t and 4s timed
+    (:func:`step_bound`, the counts taken in the worker processes); then ``launch/dryrun.py`` for smollm-135m's
+    train_4k on the two-pod mesh into a temporary directory, whose record
+    ``simulate workload`` runs on the card and on the CPU: equal lines, the
+    all-reduce bytes nonzero, ``maxmin_rates`` launched."""
+    import tempfile
+    from repro_torch.launch import dryrun, simulate
+    out = {}
+    for arch, _ in TRAIN_FULL:
+        out[f"{arch} train"] = step_bound(bg.get(f"roofline {arch} train"),
+                                          "train", trained[arch]["ms"], card)
+    for arch in ROOFLINE_ADMITS:
+        out[f"{arch} admit"] = step_bound(
+            bg.get(f"roofline {arch} prefill"), "prefill",
+            admitted[arch]["prefill_s"] * 1e3, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
+                     "--mesh", "multi", "--results", tmp])
+        took = time.perf_counter() - t0
+        with open(os.path.join(tmp, "smollm-135m__train_4k__multi.json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun: {rec.get('error')}")
+        kinds = rec["roofline"]["coll_by_kind"]
+        if not kinds["all-reduce"] > 0:
+            raise AssertionError(f"dryrun multi: no all-reduce bytes {kinds}")
+        reset_launches()
+        lines = {"cuda": simulate.main(["workload", "--results", tmp,
+                                        "--device", "cuda"])}
+        ran = launches()
+        lines["cpu"] = simulate.main(["workload", "--results", tmp,
+                                      "--device", "cpu"])
+    if lines["cuda"] != lines["cpu"] or len(lines["cuda"]) != 1:
+        raise AssertionError(f"simulate workload on the dry run: {lines}")
+    if ran["maxmin_rates"] == 0:
+        raise AssertionError("simulate workload never launched maxmin_rates")
+    print(f"[roofline] dryrun smollm-135m train_4k multi in {took:.1f} s: "
+          f"collectives {kinds}; simulate workload --device cuda == --device "
+          f"cpu; launches {ran} ({card})", flush=True)
+    out["workload"] = dict(lines=lines["cuda"], launches=ran)
+    return out
+
+
 def ptxas_lines(log: str, kernels) -> None:
     """``ptxas -v``'s registers, shared memory and spills of each instance
     of the named kernels (the lines after each "Compiling entry function"
@@ -4262,9 +4378,11 @@ def run_phases(card: str, es, ref, bg: Background) -> int:
     timed("phase 4h", phase_distributed, card, main_run, bg)
     timed("phase 4z", phase_zoo_families, card, bg)
     served = timed("phase 4s", phase_serve, card)
-    timed("phase 4s families", phase_serve_families, card)
+    families = timed("phase 4s families", phase_serve_families, card)
     timed("phase 5z", phase_serve_entry)
-    timed("phase 4t", phase_train, card, bg)
+    trained = timed("phase 4t", phase_train, card, bg)
+    timed("phase 4r", phase_roofline, card, trained, {**served, **families},
+          bg)
 
     # launches on each kernel's own path: the stitched run for the four
     # stitched hooks and maxmin_rates, the fused run for fused_select and

@@ -4,9 +4,13 @@ A CPU tensor takes the plain PyTorch version (``ref``); a CUDA tensor takes
 the hand-written kernel (``event_select``, ``bandwidth_share``,
 ``flash_attention``, ``rwkv6_scan``/``ssm_scan``), which raises on anything
 it does not accept. There is no fallback from the kernel to the plain
-version. The engine's ``select_fn``/``group_fn``/``trace_fn``/``route_fn``
-hooks default to these functions, ``spec.fused_select`` binds ``fused_fn``
-and ``slot_fn`` to ``fused_select`` and ``ring_slots``, the flow handlers'
+version. A ``meta`` tensor (the dry run's, ``roofline/count.py``) takes the
+plain version too: it holds no data, so nothing is computed and nothing is
+hidden, and the dry run counts the products of a step without a card. A
+tensor on any other device raises. The engine's ``select_fn``/
+``group_fn``/``trace_fn``/``route_fn`` hooks default to these functions,
+``spec.fused_select`` binds ``fused_fn`` and ``slot_fn`` to
+``fused_select`` and ``ring_slots``, the flow handlers'
 ``core.network.maxmin_rates`` calls ``maxmin_rates``, and the model zoo's
 prefill (and whisper's encoder and cross-attention) calls
 ``flash_attention`` (``models/layers.py``) and ``rwkv6_scan``
@@ -47,9 +51,11 @@ def lane_groups(n: int):
 
 
 def _on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU or meta tensor
+    (the plain version); any other device raises."""
     if x.is_cuda:
         return True
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
 

@@ -168,21 +168,19 @@ class FlowOrder(NamedTuple):
 LEFT_TO_RIGHT = FlowOrder()
 
 # XLA:CPU's order for an unbatched ``inc.T @ x`` over F flows and L links,
-# read off its compiled matvec (jax 0.9.0) by tools/probe_flow_order.py: at
-# every F = 43-128 and L = 1-64; at L = 65-128 for F = 48, 64, 96 and 128;
-# and at F = 129-256 for every L = 1-9 and L = 64, plus three L a flow
-# count drawn from 10-63. ``_UNBATCHED_ORDER[F]`` lists (first L, last L,
-# order). Every tree probed there has the FlowOrder form: a head of 32, 48
-# or 64 flows, or a multiple of 32 up to 256, in one of the block orders
-# below, then 1, 2, 4 or 8 tail lanes and up to 8 trailing flows; the gaps
-# between the ranges sum left to right. The probe found left to right at
-# every F <= 42 and L <= 64, and at F = 48 for L = 65-128, too. From F = 129
-# on the orders repeat every 32 flows: F = H + r (H = 32 * (F // 32)) takes
-# the ranges of F = 96 + r with a head of H flows where F = 96 + r has 96
-# (H - 32 where it has 64), its blocks in four runs from L = 9 on. The rest
-# (F > 256; L > 64 at any other F; L = 10-63 between the samples at F >
-# 128) is not probed, and the port sums it left to right (ROADMAP.md,
-# section 3).
+# read off its compiled matvec (jax 0.9.0) by tools/probe_flow_order.py at
+# every F = 2-256 and L = 1-128 (F = 43-128 at L = 1-64 by the unpacked
+# probe; the rest by the packed one). ``_UNBATCHED_ORDER[F]`` lists (first
+# L, last L, order). Every tree probed has the FlowOrder form: a head of
+# 32, 48 or 64 flows, or a multiple of 32 up to 256, in one of the block
+# orders below, then 1, 2, 4 or 8 tail lanes and up to 8 trailing flows;
+# the gaps between the ranges sum left to right. The probe found left to
+# right at every F <= 42. From F = 129 on the orders repeat every 32 flows:
+# F = H + r (H = 32 * (F // 32)) takes the ranges of F = 96 + r with a head
+# of H flows where F = 96 + r has 96 (H - 32 where it has 64), its blocks
+# in four runs from L = 9 on. At every F, L = 65-128 takes the order of L =
+# 64 (``_to_128``). F > 256 and L > 128 are not probed, and the port sums
+# them left to right (ROADMAP.md, section 3).
 def _head(n_flows: int, chains: int = 1) -> FlowOrder:
     """A head of ``n_flows`` (a multiple of 32) in XLA:CPU's block order:
     the blocks in four runs by residue mod 4, (0, 4, 8, ...), (1, 5, 9,
@@ -348,6 +346,17 @@ def _period_rows(F: int) -> tuple:
 
 
 _UNBATCHED_ORDER.update({F: _period_rows(F) for F in range(129, 257)})
+
+
+def _to_128(rows: tuple) -> tuple:
+    """A flow count's last range of link counts, where it ends at L = 64,
+    carried on to L = 128: the probe read the L = 64 order at every L =
+    65-128 for every F = 43-256."""
+    lo, hi, order = rows[-1]
+    return rows[:-1] + ((lo, 128, order),) if hi == 64 else rows
+
+
+_UNBATCHED_ORDER = {F: _to_128(rows) for F, rows in _UNBATCHED_ORDER.items()}
 
 
 def flow_order(n_flows: int, n_links: int, n_lanes: int) -> FlowOrder:

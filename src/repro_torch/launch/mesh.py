@@ -1,7 +1,9 @@
-"""The mesh of the drivers across devices (counterpart of
-``repro.launch.mesh.make_sim_mesh``).
+"""Meshes and hardware constants, the counterpart of
+``repro.launch.mesh``: the mesh of the drivers across devices
+(``make_sim_mesh``), the production mesh the dry run places on
+(``make_production_mesh``), and the H100's rates the roofline terms take.
 
-A mesh here is a list of torch devices, one a shard; ``Engine.
+A simulation mesh is a list of torch devices, one a shard; ``Engine.
 run_distributed`` packs ``ceil(A / D)`` agents on each of its D shards.
 Shards may share a device, as the reference's forced host devices do: on
 the CPU every shard is ``cpu``, and with fewer cards than shards several
@@ -32,3 +34,27 @@ def make_sim_mesh(n_devices: int | None = None, device=None) -> list:
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n}")
     return [dev] * n
+
+
+def make_production_mesh(multi_pod: bool = False) -> dict:
+    """The reference's production mesh as axis sizes (the dry run places
+    on it and runs nothing there): 256 chips as (data 16, model 16), or
+    two such pods with a leading ``pod`` axis. The shapes are the
+    reference's, so a cell of either package reads the same placements."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+# Hardware constants of the roofline terms: one NVIDIA H100 SXM (80GB HBM3,
+# 700 W), from NVIDIA's data sheet, dense rates. The collective term takes
+# one link's rate, the reference's convention (its ICI_BW_PER_LINK): an
+# NVLink 4 link moves 25 GB/s a direction, and an H100 has 18 of them
+# (900 GB/s in all), so the term is the time over a single link, an upper
+# bound on the time over all of them.
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s per chip, bf16 tensor cores
+HBM_BW = 3.35e12              # bytes/s per chip
+LINK_BW = 25e9                # bytes/s per NVLink 4 link, one direction
+LINKS_PER_CHIP = 18
+HBM_PER_CHIP = 80e9           # bytes
+CHIPS_PER_POD = 256

@@ -124,15 +124,13 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.kv_dtype) if cfg.kv_dtype else dtype_of(cfg)
 
 
-def _qkv(p, x, cfg: ModelConfig):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+def _proj(p, x, cfg: ModelConfig, name: str):
+    """x's projection by ``w{name}`` (plus ``b{name}`` where the config has
+    biases)."""
+    y = torch.einsum("bsd,dhk->bshk", x, p["w" + name])
     if cfg.use_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    return q, k, v
+        y = y + p["b" + name].to(y.dtype)
+    return y
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -141,11 +139,16 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
 
 
-def _decode_attention(q, k, v, valid):
+def _decode_attention(q, k, v, valid, chunk_kv: int):
     """One query per row against the cache: q (b, 1, h, hd), k and v (b,
     cache_len, n_kv, hd) in the cache's dtype, the first ``valid`` slots
     attendable (in any order: RoPE is relative). Float32 softmax, GQA by
-    head grouping h = kv * group + g."""
+    head grouping h = kv * group + g. On ``meta`` (the dry run) the
+    reference's chunked form over key chunks of ``chunk_kv``, whose
+    products the count reads (``roofline/count.py``)."""
+    if q.is_meta:
+        return chunked_attention(q, k, v, causal=False, window=0, chunk_q=1,
+                                 chunk_kv=chunk_kv, valid=valid)
     b, sq, h, hd = q.shape
     cl, n_kv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, n_kv, h // n_kv, hd)
@@ -166,12 +169,13 @@ def _divisor_chunk(n: int, c: int) -> int:
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
-                      chunk_kv: int):
+                      chunk_kv: int, valid=None):
     """The reference's training attention (``_chunked_attention``, its
-    rectangular scheme, no offset, every key valid) in plain PyTorch:
-    q (b, sq, h, hd) over k, v (b, skv, n_kv, hd), GQA by head grouping h =
-    kv * group + g, float32 online softmax over key chunks, masked scores
-    -1e30. Returns (b, sq, h, hd) float32."""
+    rectangular scheme, no offset) in plain PyTorch: q (b, sq, h, hd) over
+    k, v (b, skv, n_kv, hd), GQA by head grouping h = kv * group + g,
+    float32 online softmax over key chunks, masked scores -1e30, the keys
+    from ``valid`` on masked (default: every key valid). Returns (b, sq,
+    h, hd) float32."""
     b, sq, h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
@@ -185,12 +189,14 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
     for lo, kb, vb in zip(range(0, skv, ck), k.float().split(ck, dim=1),
                           v.float().split(ck, dim=1)):
         s = torch.einsum("bqcngd,bknd->bqngck", qr, kb) * (1.0 / math.sqrt(hd))
+        kpos = torch.arange(lo, lo + ck, device=q.device)
         if causal:
-            kpos = torch.arange(lo, lo + ck, device=q.device)
             mask = kpos <= q_pos                             # (n_q, cq, ck)
             if window > 0:
                 mask = mask & (kpos > q_pos - window)
             s = torch.where(mask[None, :, None, None], s, NEG_INF)
+        if valid is not None:
+            s = s.masked_fill(~(kpos < valid), NEG_INF)
         m2 = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m2[..., None])
         corr = torch.exp(m - m2)
@@ -202,9 +208,16 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
     return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, hd)
 
 
-def _flash(q, k, v, *, causal: bool, window: int = 0):
+def _flash(q, k, v, *, causal: bool, window: int = 0, chunk_q: int,
+           chunk_kv: int):
     """(b, sq, h, hd) queries over (b, skv, n_kv, hd) keys and values
-    through ``ops.flash_attention``; returns (b, sq, h, hd)."""
+    through ``ops.flash_attention``; returns (b, sq, h, hd). On ``meta``
+    (the dry run) it takes the reference's chunked form, whose products
+    the count reads (``roofline/count.py``)."""
+    if q.is_meta:
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk_q=chunk_q, chunk_kv=chunk_kv).to(
+                                     q.dtype)
     b, sq, h, hd = q.shape
     out = ops.flash_attention(_heads_first(q), _heads_first(k),
                               _heads_first(v), causal=causal, window=window)
@@ -221,7 +234,8 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, chunk_q=chunk_q,
                         chunk_kv=chunk_kv)
-        return _flash(q, k, v, causal=causal, window=window)
+        return _flash(q, k, v, causal=causal, window=window,
+                      chunk_q=chunk_q, chunk_kv=chunk_kv)
 
     @staticmethod
     def backward(ctx, grad):
@@ -260,42 +274,48 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
     ``min(cache_len, seq)`` keys and values go into the cache; one token is
     decode: its K/V go into the ring slot ``length % cache_len`` (the
     oldest, once the ring is full) and it attends the valid slots in plain
-    PyTorch, as the reference computes it outside any kernel. The cache's tensors (views into the model's stacked
-    state) are written in place. (c) ``cross_kv=(k, v)``: cross-attention
-    of q (its bias included, no RoPE) over every precomputed key, through
-    the kernel (non-causal) for a prompt, in plain PyTorch for one token.
+    PyTorch, as the reference computes it outside any kernel. The cache's
+    tensors (views into the model's stacked state) are written in place.
+    (c) ``cross_kv=(k, v)``: cross-attention of q (its bias included, no
+    RoPE) over every precomputed key, through the kernel (non-causal) for a
+    prompt, in plain PyTorch for one token; x's own K and V are not
+    projected (the reference projects them, and XLA drops the unused
+    products). On ``meta`` (the dry run) every attention takes the
+    reference's chunked form (:func:`chunked_attention`), whose products
+    the count reads.
     """
     b, s, _ = x.shape
-    q, k_new, v_new = _qkv(p, x, cfg)
-    if cross_kv is not None:
+    q = _proj(p, x, cfg, "q")
+    if cross_kv is not None:   # K and V are the encoder's: no projection
         k, v = cross_kv
         if s == 1:
-            out = _decode_attention(q, k, v, k.shape[1])
+            out = _decode_attention(q, k, v, k.shape[1], cfg.attn_chunk_kv)
         else:
             out = FlashAttention.apply(q, k, v, False, 0, cfg.attn_chunk_q,
                                        cfg.attn_chunk_kv)
-    elif cache is None:
-        out = FlashAttention.apply(
-            _rope(q, positions, cfg), _rope(k_new, positions, cfg), v_new,
-            causal, cfg.window, cfg.attn_chunk_q, cfg.attn_chunk_kv)
+        return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"]), cache
+    q = _rope(q, positions, cfg)
+    k_new = _rope(_proj(p, x, cfg, "k"), positions, cfg)
+    v_new = _proj(p, x, cfg, "v")
+    if cache is None:
+        out = FlashAttention.apply(q, k_new, v_new, causal, cfg.window,
+                                   cfg.attn_chunk_q, cfg.attn_chunk_kv)
+    elif s == 1:
+        cache_len, cdt = cache.k.shape[1], cache.k.dtype
+        widx = (cache.length % cache_len).long().reshape(1)
+        cache.k.index_copy_(1, widx, k_new.to(cdt))
+        cache.v.index_copy_(1, widx, v_new.to(cdt))
+        valid = torch.clamp(cache.length + 1, max=cache_len)
+        cache.length.add_(1)
+        out = _decode_attention(q, cache.k, cache.v, valid,
+                                cfg.attn_chunk_kv)
     else:
-        q = _rope(q, positions, cfg)
-        k_new = _rope(k_new, positions, cfg)
-        cache_len = cache.k.shape[1]
-        cdt = cache.k.dtype
-        if s == 1:
-            widx = (cache.length % cache_len).long().reshape(1)
-            cache.k.index_copy_(1, widx, k_new.to(cdt))
-            cache.v.index_copy_(1, widx, v_new.to(cdt))
-            valid = torch.clamp(cache.length + 1, max=cache_len)
-            cache.length.add_(1)
-            out = _decode_attention(q, cache.k, cache.v, valid)
-        else:
-            out = _flash(q, k_new, v_new, causal=True, window=cfg.window)
-            keep = min(cache_len, s)
-            cache.k[:, :keep] = k_new[:, s - keep:].to(cdt)
-            cache.v[:, :keep] = v_new[:, s - keep:].to(cdt)
-            cache.length.fill_(keep)
+        out = _flash(q, k_new, v_new, causal=True, window=cfg.window,
+                     chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+        keep = min(cache.k.shape[1], s)
+        cache.k[:, :keep] = k_new[:, s - keep:].to(cache.k.dtype)
+        cache.v[:, :keep] = v_new[:, s - keep:].to(cache.v.dtype)
+        cache.length.fill_(keep)
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
     return y, cache
 

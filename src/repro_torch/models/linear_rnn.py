@@ -67,6 +67,20 @@ def _chunk(s: int, chunk: int) -> int:
     return c
 
 
+def _scaled(x, u):
+    """x (b, c, h, k) * u (h, k): the first pair of the reference's
+    ``einsum("bihk,hk,bihk->bhi")``. XLA lowers it as a dot_general with no
+    contracted dimension, so on ``meta`` (the dry run) it is a batched
+    product over (h, k) with a contraction of one, which the count reads as
+    the reference's; elsewhere a multiply, the same values."""
+    if not x.is_meta:
+        return x * u
+    b, c, h, k = x.shape
+    out = torch.bmm(x.reshape(b * c, h * k).T[..., None],
+                    u.reshape(h * k, 1, 1))
+    return out[..., 0].T.reshape(b, c, h, k)
+
+
 def gla_chunked_plain(q, k, v, decay, bonus=None, mode="k", chunk=64,
                       dtype=torch.float32):
     """The reference's chunked form (``repro.models.linear_rnn.gla_chunked``
@@ -98,8 +112,8 @@ def gla_chunked_plain(q, k, v, decay, bonus=None, mode="k", chunk=64,
             k_t = kc / qs
             a = torch.einsum("bihk,bjhk->bhij", r_t, k_t) * tri_lo
             if bonus is not None:
-                diag = torch.einsum("bihk,hk,bihk->bhi", qc, bonus.to(dtype),
-                                    kc)
+                qb = _scaled(qc, bonus.to(dtype))
+                diag = torch.einsum("bihk,bihk->bhi", qb, kc)
                 a = a + diag[..., None] * eye
             outs.append(torch.einsum("bihk,bhkv->bihv", r_t, state)
                         + torch.einsum("bhij,bjhv->bihv", a, vc))
@@ -119,7 +133,14 @@ def gla_chunked_plain(q, k, v, decay, bonus=None, mode="k", chunk=64,
 def _gla_kernel(q, k, v, decay, bonus=None, mode="k", chunk=64):
     """The chunked form through ``ops.rwkv6_scan`` (mode "k") or
     ``ops.ssd_scan`` (mode "v"); layouts as ``gla_ref``. Returns (out (b, s,
-    h, dv) in q's dtype, state (b, h, dk, dv) float32)."""
+    h, dv) in q's dtype, state (b, h, dk, dv) float32). On ``meta`` (the
+    dry run) it takes the reference's chunked form in float32
+    (:func:`gla_chunked_plain`), whose products the count reads
+    (``roofline/count.py``)."""
+    if q.is_meta:
+        out, state = gla_chunked_plain(q, k, v, decay, bonus, mode=mode,
+                                       chunk=chunk)
+        return out.to(q.dtype), state
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     c = _chunk(s, chunk)

@@ -16,6 +16,9 @@ layers on a leading axis, the port keeps one module per layer) and exposes
   prefill_fn(batch)                 -> (last-token logits (b, vocab) float32,
                                         decode state)
   decode_fn(state, tokens, length)  -> (logits, state)
+  leaves() / param_names()          the reference's parameter tree: shapes,
+                                    dtypes and logical axis names
+  input_specs(shape) / decode_state_specs(shape)   meta-tensor stand-ins
 
 ``batch`` holds ``tokens`` (b, s), and ``frames`` (b, S, d) for encdec,
 optionally ``patch_embeds`` (b, P, d) and ``positions3`` (3, b, s) for vlm;
@@ -43,7 +46,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import linear_rnn as R
@@ -52,44 +55,58 @@ from repro_torch.models import moe as M
 _F32 = torch.float32
 
 AUX_WEIGHT = 0.01
+VLM_PATCHES = 1024          # patch-embedding slots at the sequence's start
 LOSS_CHUNKS = 8             # seq chunks of the chunked loss
 
 
 # ======================================================================== init
-def _dense(shape, dtype, scale=None):
+# A leaf is (shape, dtype, init rule, logical names): the names are the
+# reference's (``repro.models.layers.dense_init``'s and ``Annotated``'s),
+# which ``models/sharding.py`` resolves to a placement.
+FSDP_HEADS = ("fsdp", "heads", "head")
+HEADS_FSDP = ("heads", "head", "fsdp")
+EMBED = ("embed",)
+HEADS = ("heads", "head")
+
+
+def _dense(shape, dtype, names, scale=None):
     """A ``dense_init`` leaf: normal * (scale or 1/sqrt(shape[0]))."""
     return shape, dtype, ("normal", scale if scale is not None
-                          else 1.0 / math.sqrt(shape[0]))
+                          else 1.0 / math.sqrt(shape[0])), names
 
 
-def _fill(shape, value):
-    return shape, _F32, ("fill", value)
+def _fill(shape, value, names=EMBED):
+    return shape, _F32, ("fill", value), names
 
 
 def _attention_spec(cfg: ModelConfig, dt):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    p = {"wq": _dense((d, h, hd), dt), "wk": _dense((d, kv, hd), dt),
-         "wv": _dense((d, kv, hd), dt),
-         "wo": _dense((h, hd, d), dt, 1.0 / math.sqrt(h * hd))}
+    kv_names = ("fsdp", "kv_heads", "head")
+    p = {"wq": _dense((d, h, hd), dt, FSDP_HEADS),
+         "wk": _dense((d, kv, hd), dt, kv_names),
+         "wv": _dense((d, kv, hd), dt, kv_names),
+         "wo": _dense((h, hd, d), dt, HEADS_FSDP, 1.0 / math.sqrt(h * hd))}
     if cfg.use_bias:
-        p.update(bq=_fill((h, hd), 0.0), bk=_fill((kv, hd), 0.0),
-                 bv=_fill((kv, hd), 0.0))
+        p.update(bq=_fill((h, hd), 0.0, HEADS),
+                 bk=_fill((kv, hd), 0.0, ("kv_heads", "head")),
+                 bv=_fill((kv, hd), 0.0, ("kv_heads", "head")))
     return p
 
 
 def _mlp_spec(cfg: ModelConfig, dt, d_ff: int | None = None, gated=True):
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"wi": _dense((d, f), dt), "wo": _dense((f, d), dt)}
+    p = {"wi": _dense((d, f), dt, ("fsdp", "mlp")),
+         "wo": _dense((f, d), dt, ("mlp", "fsdp"))}
     if gated:
-        p["wg"] = _dense((d, f), dt)
+        p["wg"] = _dense((d, f), dt, ("fsdp", "mlp"))
     return p
 
 
 def _block_spec(cfg: ModelConfig, kind: str) -> dict:
-    """One block's leaves: name -> (shape, dtype, init), or a dict of them
-    for a sub-layer; the reference's ``_init_block`` leaf for leaf. Kinds:
-    dense, moe, dense_ffn_moe_arch (a moe model's leading dense layers),
-    hybrid, rwkv, enc and dec."""
+    """One block's leaves: name -> (shape, dtype, init, names), or a dict of
+    them for a sub-layer; the reference's ``_init_block`` leaf for leaf.
+    Kinds: dense, moe, dense_ffn_moe_arch (a moe model's leading dense
+    layers), hybrid, rwkv, enc and dec."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
     dt = L.dtype_of(cfg)
     norm = _fill((d,), 1.0)
@@ -98,28 +115,33 @@ def _block_spec(cfg: ModelConfig, kind: str) -> dict:
         return {
             "ln1": norm,
             "tmix": {
-                "mu": _fill((5, d), 0.5),
-                "wr": _dense((d, h, hd), dt), "wk": _dense((d, h, hd), dt),
-                "wv": _dense((d, h, hd), dt), "wg": _dense((d, h, hd), dt),
-                "wo": _dense((h, hd, d), dt, 1.0 / math.sqrt(d)),
-                "w0": _fill((h, hd), -2.0),
-                "wA": _dense((d, lora), _F32, 0.01),
-                "wB": _dense((lora, h, hd), _F32, 0.01),
-                "u": _fill((h, hd), 0.0),
-                "ln_x": _fill((h, hd), 1.0)},
+                "mu": _fill((5, d), 0.5, ("conv", "embed")),
+                "wr": _dense((d, h, hd), dt, FSDP_HEADS),
+                "wk": _dense((d, h, hd), dt, FSDP_HEADS),
+                "wv": _dense((d, h, hd), dt, FSDP_HEADS),
+                "wg": _dense((d, h, hd), dt, FSDP_HEADS),
+                "wo": _dense((h, hd, d), dt, HEADS_FSDP, 1.0 / math.sqrt(d)),
+                "w0": _fill((h, hd), -2.0, HEADS),
+                "wA": _dense((d, lora), _F32, ("fsdp", "mlp"), 0.01),
+                "wB": _dense((lora, h, hd), _F32, ("mlp", "heads", "head"),
+                             0.01),
+                "u": _fill((h, hd), 0.0, HEADS),
+                "ln_x": _fill((h, hd), 1.0, HEADS)},
             "ln2": norm,
-            "cmix": {"mu": _fill((2, d), 0.5),
-                     "wk": _dense((d, cfg.d_ff), dt),
-                     "wv": _dense((cfg.d_ff, d), dt)}}
+            "cmix": {"mu": _fill((2, d), 0.5, ("conv", "embed")),
+                     "wk": _dense((d, cfg.d_ff), dt, ("fsdp", "mlp")),
+                     "wv": _dense((cfg.d_ff, d), dt, ("mlp", "fsdp"))}}
     p = {"ln1": norm, "attn": _attention_spec(cfg, dt), "ln2": norm}
     if kind == "hybrid":
         n = cfg.ssm_state
-        p["ssd"] = {"wx": _dense((d, h, hd), dt), "wB": _dense((d, h, n), dt),
-                    "wC": _dense((d, h, n), dt),
-                    "wdt": _dense((d, h), _F32, 0.01),
-                    "a_log": _fill((h,), 0.0),
-                    "wo": _dense((h, hd, d), dt, 1.0 / math.sqrt(d)),
-                    "dt_bias": _fill((h,), -1.0)}
+        p["ssd"] = {"wx": _dense((d, h, hd), dt, FSDP_HEADS),
+                    "wB": _dense((d, h, n), dt, ("fsdp", "heads", "ssm_state")),
+                    "wC": _dense((d, h, n), dt, ("fsdp", "heads", "ssm_state")),
+                    "wdt": _dense((d, h), _F32, ("fsdp", "heads"), 0.01),
+                    "a_log": _fill((h,), 0.0, ("heads",)),
+                    "wo": _dense((h, hd, d), dt, HEADS_FSDP,
+                                 1.0 / math.sqrt(d)),
+                    "dt_bias": _fill((h,), -1.0, ("heads",))}
         p["ln_attn_out"] = norm
         p["ln_ssd_out"] = norm
     if kind == "moe":
@@ -147,14 +169,24 @@ def _block_kind(cfg: ModelConfig) -> str:
 
 class _Leaves(nn.Module):
     """Parameters of one tree level: a leaf is an ``nn.Parameter``, a
-    sub-layer an ``nn.ParameterDict`` (read as ``p["wq"]``)."""
+    sub-layer an ``nn.ParameterDict`` (read as ``p["wq"]``). Each leaf's
+    init rule goes into ``rules`` under its parameter name, and its
+    (shape, dtype, names) into ``leaves`` under the reference's tree path
+    (``layers.attn.wq``: a stack of ``layers`` blocks adds that leading axis
+    and the name ``"layers"``, as the reference's ``_stack_init``)."""
 
-    def __init__(self, spec: dict, device, rules: dict, prefix: str):
+    def __init__(self, spec: dict, device, rules: dict, prefix: str,
+                 leaves: dict, path: str, layers: int | None = None):
         super().__init__()
 
         def param(name, leaf):
-            shape, dtype, rule = leaf
+            shape, dtype, rule, names = leaf
             rules[prefix + name] = rule
+            if layers is None:
+                leaves[path + name] = (tuple(shape), dtype, names)
+            else:
+                leaves[path + name] = ((layers, *shape), dtype,
+                                       ("layers", *names))
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                                 requires_grad=False)
 
@@ -232,16 +264,19 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self._rules: dict[str, tuple] = {}
+        self._leaves: dict[str, tuple] = {}
         d, dt = cfg.d_model, L.dtype_of(cfg)
-        emb = {"tok": _dense((cfg.vocab, d), dt, 1.0 / math.sqrt(d))}
+        emb = {"tok": _dense((cfg.vocab, d), dt, ("vocab", "fsdp"),
+                             1.0 / math.sqrt(d))}
         if not cfg.tie_embeddings:
-            emb["out"] = _dense((d, cfg.vocab), dt, 1.0 / math.sqrt(d))
+            emb["out"] = _dense((d, cfg.vocab), dt, ("fsdp", "vocab"),
+                                1.0 / math.sqrt(d))
         top = {"embed": emb, "final_norm": _fill((d,), 1.0)}
         if cfg.family == "encdec":
             top.update(enc_norm=_fill((d,), 1.0), enc_normb=_fill((d,), 0.0))
         if cfg.family == "vlm":
-            top["patch_proj"] = _dense((d, d), dt)
-        top = _Leaves(top, self.device, self._rules, "")
+            top["patch_proj"] = _dense((d, d), dt, ("fsdp", "embed"))
+        top = _Leaves(top, self.device, self._rules, "", self._leaves, "")
         for name, leaf in (*top.named_children(),
                            *top.named_parameters(recurse=False)):
             setattr(self, name, leaf)
@@ -249,7 +284,8 @@ class Model(nn.Module):
         def stack(name, kind, n):
             return nn.ModuleList(
                 _Leaves(_block_spec(cfg, kind), self.device, self._rules,
-                        f"{name}.{i}.") for i in range(n))
+                        f"{name}.{i}.", self._leaves, f"{name}.", n)
+                for i in range(n))
 
         if cfg.moe_first_dense:
             self.first_layers = stack("first_layers", "dense_ffn_moe_arch",
@@ -315,7 +351,14 @@ class Model(nn.Module):
     def _cross_kv(self, enc_out):
         """Each decoder layer's cross-attention K and V of the encoder's
         output, stacked (n_layers, b, S, n_kv, hd). No bias, as the
-        reference's (its ``_qkv`` bias applies to q only)."""
+        reference's (its ``_qkv`` bias applies to q only). On ``meta`` (the
+        dry run) one product of the stacked weights, the form of the
+        reference's vmap over the layers, whose products the count reads."""
+        if enc_out.is_meta:
+            return tuple(torch.einsum(
+                "bsd,ndhk->nbshk", enc_out,
+                torch.stack([p.xattn[w] for p in self.layers]))
+                for w in ("wk", "wv"))
         ks, vs = zip(*((torch.einsum("bsd,dhk->bshk", enc_out, p.xattn["wk"]),
                         torch.einsum("bsd,dhk->bshk", enc_out, p.xattn["wv"]))
                        for p in self.layers))
@@ -448,41 +491,96 @@ class Model(nn.Module):
             return min(cfg.window, base)
         return base
 
-    def _self_caches(self, b: int, cache_len: int, n: int | None = None):
+    def _self_caches(self, b: int, cache_len: int, n: int | None = None,
+                     device=None):
         """Zeroed caches of ``n`` layers (default: the main stack's,
-        ``n_layers - moe_first_dense``)."""
+        ``n_layers - moe_first_dense``), on ``device`` (the model's)."""
         cfg = self.cfg
+        dev = self.device if device is None else device
         n = cfg.n_layers - cfg.moe_first_dense if n is None else n
         shape = (n, b, cache_len, cfg.n_kv, cfg.head_dim)
         dt = L.cache_dtype(cfg)
         return L.KVCache(
-            k=torch.zeros(shape, dtype=dt, device=self.device),
-            v=torch.zeros(shape, dtype=dt, device=self.device),
-            length=torch.zeros((n,), dtype=torch.int32, device=self.device))
+            k=torch.zeros(shape, dtype=dt, device=dev),
+            v=torch.zeros(shape, dtype=dt, device=dev),
+            length=torch.zeros((n,), dtype=torch.int32, device=dev))
 
-    def _inner_state(self, b: int, cache_len: int):
+    def _inner_state(self, b: int, cache_len: int, device=None):
         cfg = self.cfg
+        dev = self.device if device is None else device
         kind = _block_kind(cfg)
         n = cfg.n_layers - cfg.moe_first_dense
         caches, rnn = None, None
         if kind in ("dense", "moe", "hybrid"):
-            caches = self._self_caches(b, cache_len)
+            caches = self._self_caches(b, cache_len, device=dev)
         if kind == "hybrid":
             rnn = {"ssd": torch.zeros((n, b, cfg.n_heads, cfg.ssm_state,
-                                       cfg.head_dim), dtype=_F32,
-                                      device=self.device)}
+                                       cfg.head_dim), dtype=_F32, device=dev)}
         elif kind == "rwkv":
             d, dt = cfg.d_model, L.dtype_of(cfg)
             rnn = {
                 "S": torch.zeros((n, b, cfg.n_heads, cfg.head_dim,
-                                  cfg.head_dim), dtype=_F32,
-                                 device=self.device),
-                "tm_prev": torch.zeros((n, b, 1, d), dtype=dt,
-                                       device=self.device),
-                "cm_prev": torch.zeros((n, b, 1, d), dtype=dt,
-                                       device=self.device),
+                                  cfg.head_dim), dtype=_F32, device=dev),
+                "tm_prev": torch.zeros((n, b, 1, d), dtype=dt, device=dev),
+                "cm_prev": torch.zeros((n, b, 1, d), dtype=dt, device=dev),
             }
         return caches, rnn
+
+    # ------------------------------------------------- the dry run's views
+    def leaves(self) -> dict:
+        """The reference's parameter tree leaf for leaf: {tree path joined
+        with '.': (shape, dtype, logical names)}, a stack of layers as one
+        leaf with a leading ``"layers"`` axis (``layers.attn.wq`` (n, d, h,
+        hd)), as ``repro.models.model.init_params`` builds it."""
+        return dict(self._leaves)
+
+    def param_names(self) -> dict:
+        """{tree path: logical names}, the names tree of the reference's
+        ``split_annotated(init)``."""
+        return {k: names for k, (_, _, names) in self._leaves.items()}
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Meta tensors for every model input of ``shape`` (the counterpart
+        of the reference's ``ShapeDtypeStruct`` stand-ins)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(size, dtype):
+            return torch.empty(size, dtype=dtype, device="meta")
+
+        i32, f = torch.int32, L.dtype_of(cfg)
+        if shape.mode == "decode":
+            return {"tokens": meta((b, 1), i32)}
+        out = {"tokens": meta((b, s), i32)}
+        if cfg.family == "encdec":
+            out = {"frames": meta((b, s, cfg.d_model), f),
+                   "tokens": meta((b, cfg.decoder_len), i32)}
+        if shape.mode == "train":
+            out["targets"] = meta(out["tokens"].shape, i32)
+        if cfg.family == "vlm":
+            out["patch_embeds"] = meta((b, VLM_PATCHES, cfg.d_model), f)
+            out["positions3"] = meta((3, b, s), i32)
+        return out
+
+    def decode_state_specs(self, shape: ShapeConfig) -> dict:
+        """The decode state of ``shape`` as meta tensors, ``prefill_fn``'s
+        structure (the counterpart of the reference's
+        ``decode_state_specs``)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if cfg.family == "encdec":
+            xk = torch.empty((cfg.n_layers, b, s, cfg.n_kv, cfg.head_dim),
+                             dtype=L.dtype_of(cfg), device="meta")
+            return {"kv": self._self_caches(b, cfg.decoder_len,
+                                            device="meta"),
+                    "cross": (xk, torch.empty_like(xk))}
+        state = {}
+        if cfg.moe_first_dense:
+            state["kv_first"] = self._self_caches(
+                b, self._cache_len(s), n=cfg.moe_first_dense, device="meta")
+        caches, rnn = self._inner_state(b, self._cache_len(s), device="meta")
+        state.update(kv=caches, rnn=rnn)
+        return state
 
 
 # ------------------------------------------------------------- chunked loss

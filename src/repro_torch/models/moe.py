@@ -30,12 +30,14 @@ _F32 = torch.float32
 
 def init_moe(cfg: ModelConfig, dt: torch.dtype) -> dict:
     """The leaves of ``repro.models.moe.init_moe``: name -> (shape, dtype,
-    init rule), the router in float32."""
+    init rule, logical names), the router in float32."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     std = ("normal", 1.0 / math.sqrt(d))
-    return {"router": ((d, e), _F32, std),
-            "wi": ((e, d, f), dt, std), "wg": ((e, d, f), dt, std),
-            "wo": ((e, f, d), dt, ("normal", 1.0 / math.sqrt(f)))}
+    up = ("experts", "fsdp", "mlp")
+    return {"router": ((d, e), _F32, std, ("fsdp", "experts")),
+            "wi": ((e, d, f), dt, std, up), "wg": ((e, d, f), dt, std, up),
+            "wo": ((e, f, d), dt, ("normal", 1.0 / math.sqrt(f)),
+                   ("experts", "mlp", "fsdp"))}
 
 
 def capacity(cfg: ModelConfig, s: int) -> int:

@@ -1,25 +1,26 @@
 """The one-lane max-min flow sum at every tabled order, against the installed
 XLA (see tests/test_torch_network.py for the probe and the reason).
 
-``tools/probe_flow_order.py`` read the reference's tree at every F = 43-128
-and L = 1-64 (about 2.4 CPU-hours), at L = 65-128 for F = 48, 64, 96 and
-128, and at F = 129-256 for L = 1-9 and 64 and three sampled L each; every
-tree there has the ``FlowOrder`` form and is tabled in
-``kernels/ref.py::_UNBATCHED_ORDER``. Here, within the test budget:
+``tools/probe_flow_order.py`` read the reference's tree at every F = 2-256
+and L = 1-128 (F = 43-128 at L = 1-64 one pair a call, about 2.4
+CPU-hours; the rest L pairs a call); every tree there has the
+``FlowOrder`` form and is tabled in ``kernels/ref.py::_UNBATCHED_ORDER``.
+Here, within the test budget:
 
 * the workload bridge's shapes (2n flows over n links) at n = 27, 40 and 45
   in full: every pair of the tree, and the max-min rates bit for bit;
-  then the table's new ends, (128, 128) and (256, 64), the same way;
+  then the table's ends (128, 128) and (256, 64), the same way;
 * both ends of every tabled range of L up to F = 128 (those
   tests/test_torch_maxmin.py does not hold against the reference
-  already), and a seeded sample of 32 range ends from F = 129 on: the
-  port's tree checked at one pair of flows under each of its nodes (so
-  every node's size is read off the reference), then the flow sums bit for
-  bit on random inputs; the max-min rates bit for bit at a range end of
-  each head form;
-* shapes just past the table, where the port sums left to right and the
-  reference does not: the trees differ, and the rates' gap is measured
-  and bounded.
+  already), a seeded sample of 32 range ends from F = 129 on, and a
+  seeded sample of 8 of the ends at L = 128 from F = 129 on (the table's
+  last ranges, carried from L = 64 to 128): the port's tree checked at one
+  pair of flows under each of its nodes (so every node's size is read off
+  the reference), then the flow sums bit for bit on random inputs; the
+  max-min rates bit for bit at a range end of each head form;
+* shapes just past the table (F > 256 or L > 128), where the port sums
+  left to right and the reference does not: the trees differ, and the
+  rates' gap is measured and bounded.
 
 The comparisons compile JAX code at each shape, so this file holds two
 tests (see test_torch_cache.py).
@@ -123,19 +124,19 @@ def full_tree_equal(F, L) -> bool:
 def test_bridge_shapes_and_the_untabled_gap():
     """The workload bridge's shapes of fault 1: the whole tree (at n = 27
     also as ``reference_sum_tree`` reads it, one pair a call on link 0),
-    and the rates bit for bit; the same at the table's new ends, 128 flows
-    over 128 links and 256 over 64. Then shapes one past them, and (60,
-    65): the reference sums in its tree there, the port left to right, and
-    the rates differ in some lanes, by at most 16 ulps (257 flows over 8
-    links, 12 lanes), 8 ulps (160 over 65, 12 lanes; 60 over 65, 24
-    lanes); at 128 flows over 129 links the trees differ."""
+    and the rates bit for bit; the same at 128 flows over 128 links and
+    256 over 64. Then shapes past the table, F > 256 or L > 128: the
+    reference sums in its tree there, the port left to right, and the
+    rates differ in some lanes, by at most 16 ulps (257 flows over 8 links,
+    12 lanes) and 2 ulps (160 and 128 over 129, 12 lanes); at 60 flows
+    over 129 links the trees differ."""
     assert (reference_sum_tree(54, 27) == port_sum_tree(54, 27)).all()
     for F, L in ((54, 27), (80, 40), (90, 45), (128, 128), (256, 64)):
         assert tref.flow_order(F, L, 1) != tref.LEFT_TO_RIGHT
         assert full_tree_equal(F, L)
         assert _one_lane_ulps(F, L, 12, L) == (0, 0)
-    for F, L, lanes, ulps in ((257, 8, 12, 16), (160, 65, 12, 8),
-                              (60, 65, 24, 8), (128, 129, 0, 0)):
+    for F, L, lanes, ulps in ((257, 8, 12, 16), (160, 129, 12, 2),
+                              (128, 129, 12, 2), (60, 129, 0, 0)):
         assert tref.flow_order(F, L, 1) == tref.LEFT_TO_RIGHT
         assert not full_tree_equal(F, L)
         if lanes:
@@ -151,11 +152,15 @@ def test_every_tabled_range_end_sums_as_the_reference():
     assert len(low) > 280
     high = [e for e in ends if e[0] > 128]
     pick = np.random.default_rng(26).choice(len(high), 32, replace=False)
-    for F, L in sorted(set(low) - set(TABLED)) + [high[i] for i in pick]:
+    wide = [e for e in high if e[1] == 128]
+    assert len(wide) == 128
+    pick_wide = np.random.default_rng(27).choice(len(wide), 8, replace=False)
+    for F, L in (sorted(set(low) - set(TABLED)) + [high[i] for i in pick]
+                 + [wide[i] for i in pick_wide]):
         check_shape(F, L, F * 100 + L)
     # the rates, bit for bit, at a range end of each head form
-    for F, L in ((43, 1), (53, 64), (60, 8), (80, 8), (127, 5), (128, 9),
-                 (96, 128), (156, 5), (200, 1), (255, 64)):
+    for F, L in ((43, 1), (53, 128), (60, 8), (80, 8), (127, 5), (128, 9),
+                 (96, 128), (156, 5), (200, 1), (255, 128)):
         assert (F, L) in ends
         assert _one_lane_ulps(F, L, 4, F * 100 + L) == (0, 0), (F, L)
 

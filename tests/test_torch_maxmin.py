@@ -149,17 +149,20 @@ def test_flow_order_is_the_kernels_contract():
     assert ref.flow_order(128, 4, 2) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(60, 8, 1) == ref._ORDER_48._replace(
         tail_lanes=4, trailing=4)
-    assert ref.flow_order(60, 65, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(60, 65, 1) == ref._ORDER_48._replace(
+        tail_lanes=4)
+    assert ref.flow_order(60, 129, 1) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(128, 128, 1) == ref._ORDER_128_CHAINS
     assert ref.flow_order(128, 129, 1) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(256, 1, 1) == ref._head(256)
     assert ref.flow_order(256, 64, 1) == ref._head(256, chains=4)
-    assert ref.flow_order(256, 65, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(256, 128, 1) == ref._head(256, chains=4)
+    assert ref.flow_order(256, 129, 1) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(257, 4, 1) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(42, 7, 1) == ref.LEFT_TO_RIGHT
     for F, ranges in ref._UNBATCHED_ORDER.items():
         for lo, hi, order in ranges:
-            assert 1 <= lo <= hi <= (128 if F <= 128 else 64)
+            assert 1 <= lo <= hi <= 128
             words = bs._pack_order(order, F, 32)
             assert [(words[k // 8] >> (8 * (k % 8))) & 255
                     for k in range(order.head // 8)] == list(order.blocks)

@@ -115,7 +115,8 @@ def test_moe_combine_is_the_same_on_every_call():
 
 def test_kernel_wrappers_take_cuda_tensors_only():
     """The wrappers raise on a CPU tensor before building anything; ``ops``
-    sends it to the plain version, and refuses a device with neither."""
+    sends it (and a ``meta`` tensor, the dry run's) to the plain version,
+    and refuses a device with neither."""
     q = torch.randn(4, 64, 16)
     w = torch.rand(4, 64, 16) * 0.5 + 0.4
     with pytest.raises(ValueError, match="CUDA"):
@@ -124,8 +125,15 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         rwkv6_scan.gla_scan(q, q, q, w, torch.randn(4, 16), mode="k")
     with pytest.raises(ValueError, match="CUDA"):
         ssm_scan.ssd_scan(q, q, q, w)
+    mq = q.to("meta")
+    assert ops.flash_attention(mq, mq, mq).is_meta
+
+    class OtherDevice:
+        is_cuda = False
+        device = torch.device("xpu")
+
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+        ops.flash_attention(OtherDevice(), q, q)
     for name, fns in (("flash_attention", ["launch_flash_attention"]),
                       ("rwkv6_scan", ["launch_gla_scan", "gla_smem_bytes",
                                       "gla_max_smem", "gla_tc_smem_bytes",
