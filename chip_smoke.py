@@ -275,6 +275,22 @@ N_T1, T2_PER_T1 = 13, 4
 # by the dry run's count on a one-chip mesh.
 TRAIN_FULL = (("hymba-1.5b", {}), ("rwkv6-7b", dict(n_layers=8)))
 TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 3
+# Phase 4t's causal schemes: hymba-1.5b at full width, B x S of train_4k's
+# length with 4t's token count, chunks 2,048 / 1,024 as configured: two
+# query chunks over four key chunks, 8 visits a layer in "rect", 5 in
+# "tri" (window 1,024). At 4t's S = 2,048 there is one query chunk, and
+# "tri" and "rect" are the same work, so that shape checks nothing.
+TRI_ARCH, TRI_B, TRI_S = "hymba-1.5b", 2, 4096
+# The two steps run in float32 with TF32 off: in bfloat16 a last-bit
+# difference in the recompute's float32 sums flips a rounding now and then,
+# and 32 layers of bfloat16 backward spread it (the embedding's gradient
+# 5.49e-4 apart on the card). Their gradients agree within the float32
+# tolerance of the JAX suite's attention tests, in its form
+# (tests/test_kernels.py::test_flash_attention_sweep: |a - b| <= atol +
+# rtol * |b|, atol = rtol = 2e-6); the largest difference over each leaf's
+# scale is printed beside it (2.5e-6 on the card: the first layers' leaves,
+# at the end of the backward).
+TRI_DTYPE, TRI_TOL = "float32", 2e-6
 ROOFLINE_ADMITS = ("hymba-1.5b", "rwkv6-7b", "moonshot-v1-16b-a3b")
 ONE_CHIP = {"data": 1, "model": 1}
 # Phase 4t's families: one train step each at its smoke config in float32,
@@ -1316,6 +1332,20 @@ def maxmin_rounds(inc, bw, active) -> int:
     return total
 
 
+def plain_stopped(inc, bw, act):
+    """``ref.maxmin_rates`` stopped after its first round that freezes no
+    flow, as the kernel stops: every later round leaves the rates and the
+    frozen flows as they are, so the bits are those of all L rounds, at a
+    fraction of the plain version's L rounds of small ops."""
+    import torch
+    from repro_torch.kernels import ref
+    rate = torch.zeros(act.shape, dtype=torch.float32, device=act.device)
+    for rate, newly in ref._fill_rounds(inc, bw, act):
+        if not bool(newly.any()):
+            break
+    return torch.where(act, rate, 0.0)
+
+
 def maxmin_kernel_name(F: int, L: int) -> str:
     """The kernel the launcher picks for (F, L): a warp per lane up to 32
     flows and 32 links."""
@@ -1331,7 +1361,7 @@ def phase_maxmin(g) -> dict:
     from repro_torch.kernels import bandwidth_share as bs
     from repro_torch.kernels import ref
 
-    def check(B, F, L, edge=None, quiet=False):
+    def check(B, F, L, edge=None, quiet=False, stopped=False):
         inc, bw, act = maxmin_inputs(g, B, F, L, edge)
         order = ref.flow_order(F, L, B)
         bs.reset_launches()
@@ -1339,7 +1369,7 @@ def phase_maxmin(g) -> dict:
         ran = {k: n for k, n in bs.KERNELS.items() if n}
         if ran != {maxmin_kernel_name(F, L): 1}:
             raise AssertionError(f"maxmin_rates {(B, F, L)} ran {ran}")
-        want = ref.maxmin_rates(inc, bw, act)
+        want = (plain_stopped if stopped else ref.maxmin_rates)(inc, bw, act)
         max_err(got.view(torch.int32), want.view(torch.int32))
         if quiet:
             return inc, bw, act
@@ -1353,22 +1383,28 @@ def phase_maxmin(g) -> dict:
     # tiered_grid's (32, 4) at 2048, 8 and 1 lanes, the warp kernel's edges
     # (32 flows or links, one flow, one link) and the block kernel's side
     # (33 flows; the 64-pod workload's (128, 64))
+    # (and the lane past one block's shared memory, the incidence in the
+    # global workspace: 512 flows over 256 links, and 2 lanes of 300 x 200)
     cases = [(2048, 32, 4), (8, 32, 4), (1, 32, 4), (64, 32, 32),
              (64, 1, 32), (64, 32, 1), (64, 33, 4), (64, 32, 33),
-             (256, 128, 64), (1, 128, 64), (1, 60, 8), (1, 1, 1), (3, 1, 4)]
-    # both ends of every tabled range, one line a flow count from 129 on
-    # (the orders repeat every 32 flows)
+             (256, 128, 64), (1, 128, 64), (1, 60, 8), (1, 1, 1), (3, 1, 4),
+             (1, 512, 256), (2, 300, 200), (1, 513, 8), (1, 60, 257)]
+    # both ends of every tabled range (F = 43-512, L = 1-256), one line a
+    # flow count from 129 on (the orders repeat every 32 flows), against
+    # the plain version stopped where the kernel stops
     for B, F, L in cases:
         check(B, F, L)
     t0 = time.perf_counter()
+    n_ends = 0
     for F, ranges in sorted(ref._UNBATCHED_ORDER.items()):
         ends = sorted({L for lo, hi, _ in ranges for L in (lo, hi)})
+        n_ends += len(ends)
         for L in ends:
-            check(1, F, L, quiet=F > 128)
+            check(1, F, L, quiet=F > 128, stopped=True)
         if F > 128:
             print(f"[kernels] maxmin_rates B=1 F={F} L={ends}: equal",
                   flush=True)
-    print(f"[time] 3 maxmin: every tabled range end: "
+    print(f"[time] 3 maxmin: every tabled range end ({n_ends}): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for edge in ("idle", "no_bw", "neg_bw", "repeat"):
         check(64, 32, 4, edge)
@@ -1409,6 +1445,7 @@ def maxmin_call(bs, inc, bw, act) -> None:
     batched shape, piece by piece (the mean ``time.perf_counter`` of each
     piece alone), beside the whole call and the engine's call through
     ``ops``."""
+    import ctypes
     import torch
     from repro_torch.kernels import build, ops, ref
     B, F, L = inc.shape
@@ -1427,12 +1464,14 @@ def maxmin_call(bs, inc, bw, act) -> None:
             bs._check(name, x, dt, shape)
         if lib.maxmin_smem_bytes(F, L) > lib.maxmin_max_smem():
             raise AssertionError("maxmin_rates: shared memory")
-        packed = bs._pack_order(order, F, lib.maxmin_max_order_blocks())
+        words = bs._pack_order(order, F, lib.maxmin_max_order_blocks())
+        packed = (ctypes.c_ulonglong * len(words))(*words)
         o = torch.empty((B, F), dtype=torch.float32, device=inc.device)
         return lib.launch_maxmin_rates(
-            inc.data_ptr(), bw.data_ptr(), act.data_ptr(), o.data_ptr(), B,
-            F, L, order.head, *packed, order.chains, order.tail_lanes,
-            order.trailing, torch.cuda.current_stream().cuda_stream)
+            inc.data_ptr(), bw.data_ptr(), act.data_ptr(), o.data_ptr(),
+            None, B, F, L, order.head, packed, order.chains,
+            order.tail_lanes, order.trailing,
+            torch.cuda.current_stream().cuda_stream)
 
     pieces = {
         "checks (3 tensors)": lambda: (bs._check("inc", inc, torch.float32,
@@ -1454,7 +1493,7 @@ def maxmin_call(bs, inc, bw, act) -> None:
         "data_ptr x4": lambda: (inc.data_ptr(), bw.data_ptr(),
                                 act.data_ptr(), out.data_ptr()),
         "ctypes call (the launch)": lambda: lib.launch_maxmin_rates(
-            *ptrs, B, F, L, 0, 0, 0, 0, 0, 1, 1, 0, stream),
+            *ptrs, None, B, F, L, 0, None, 1, 1, 0, stream),
         "whole: bs.maxmin_rates": lambda: bs.maxmin_rates(inc, bw, act,
                                                           order),
         "whole: the call as before": as_before,
@@ -1565,6 +1604,7 @@ CPU_JOBS = ("tiered cpu", "tiered oracle", "workload cpu", "cache cpu",
             "zoo whisper-large-v3", "zoo qwen2-vl-72b",
             *(f"train {arch}" for arch in TRAIN_FAMILIES),
             *(f"roofline {arch} train" for arch, _ in TRAIN_FULL),
+            f"roofline {TRI_ARCH} tri",
             *(f"roofline {arch} prefill" for arch in ROOFLINE_ADMITS))
 
 
@@ -4181,12 +4221,115 @@ def phase_train_entry(card: str) -> dict:
     return dict(first10=got["first10"], last10=got["last10"], seconds=took)
 
 
+def train_schemes(card: str) -> dict:
+    """``TRI_ARCH`` whole at full width in ``TRI_DTYPE`` (TF32 off), B
+    ``TRI_B`` x S ``TRI_S``, remat "full": one loss-and-gradient step (the
+    forward, the backward, no optimizer) in the ``rect`` causal scheme and
+    one in ``tri``, on the same weights and batch, each after a warm-up.
+    The forward is ``flash_attention`` under both (its kernel skips the
+    tiles outside the band either way); the backward's recompute
+    (``layers.chunked_attention``) visits every key chunk under ``rect``
+    and the band's under ``tri``, counted here through ``layers._online``.
+    The losses must be equal and each gradient leaf within ``TRI_TOL``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import loss_and_grads
+    cfg = dataclasses.replace(get_config(TRI_ARCH), dtype=TRI_DTYPE)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    batch = {k: v.to("cuda") for k, v in dp.batch_for_shard(
+        dp.DataConfig(vocab=cfg.vocab, seq_len=TRI_S, global_batch=TRI_B),
+        0, 0, 1).items()}
+    real, visits = layers._online, [0]
+
+    def counted(qr, q_pos, chunks, *args):
+        chunks = list(chunks)
+        visits[0] += qr.shape[1] * len(chunks)
+        return real(qr, q_pos, chunks, *args)
+
+    out = {}
+    try:
+        layers._online = counted
+        for scheme in ("rect", "tri"):
+            model.cfg = dataclasses.replace(cfg, causal_scheme=scheme)
+            loss_and_grads(model, params, batch)          # the warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            visits[0] = 0
+            t0 = time.perf_counter()
+            loss, _, grads = loss_and_grads(model, params, batch)
+            torch.cuda.synchronize()
+            out[scheme] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                               loss=loss, grads=grads,
+                               visits=visits[0] / cfg.n_layers,
+                               launches=launches()["flash_attention"])
+    finally:
+        layers._online = real
+        model.cfg = cfg
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    rect, tri = out["rect"], out["tri"]
+    worst, ratio, off = 0.0, 0.0, []
+    for k, want in rect["grads"].items():
+        got, want = tri["grads"][k].float(), want.float()
+        err = (got - want).abs()
+        scale = want.abs().max() + want.abs()
+        if not bool(torch.isfinite(got).all()) or \
+                bool((err > TRI_TOL + TRI_TOL * want.abs()).any()):
+            off.append(k)
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / scale.clamp_min(1e-30)).max()))
+    print(f"[train schemes] {TRI_ARCH} whole, {TRI_DTYPE} (TF32 off), B "
+          f"{TRI_B} x S {TRI_S}, window {cfg.window}, chunks "
+          f"{cfg.attn_chunk_q} / {cfg.attn_chunk_kv}: loss and gradients "
+          f"rect {rect['ms']:.3f} ms, tri {tri['ms']:.3f} ms "
+          f"({tri['ms'] / rect['ms']:.4f}); key-chunk visits a layer "
+          f"{rect['visits']:g} and {tri['visits']:g}; flash_attention "
+          f"launches {rect['launches']} and {tri['launches']} a step; loss "
+          f"{float(rect['loss']):.6f} and {float(tri['loss']):.6f}; "
+          f"gradients' largest abs difference {worst:.3e} (tolerance "
+          f"{TRI_TOL} + {TRI_TOL} |g|), largest |diff| / (max|g| + |g|) "
+          f"{ratio:.3e} ({card})", flush=True)
+    if not torch.equal(rect["loss"], tri["loss"]) or \
+            not bool(torch.isfinite(rect["loss"])):
+        raise AssertionError(f"tri: loss {float(tri['loss'])} against rect "
+                             f"{float(rect['loss'])}")
+    if off:
+        raise AssertionError(f"tri: gradients {off} outside {TRI_TOL}")
+    want_launches = 2 * cfg.n_layers               # remat: two forwards
+    if rect["launches"] != want_launches or tri["launches"] != want_launches:
+        raise AssertionError(f"tri: flash_attention launches "
+                             f"{rect['launches']} and {tri['launches']}, "
+                             f"want {want_launches}")
+    if (rect["visits"], tri["visits"]) != (8, 5):
+        raise AssertionError(f"key-chunk visits a layer {rect['visits']} "
+                             f"(rect) and {tri['visits']} (tri), want 8, 5")
+    result = dict(rect_ms=rect["ms"], tri_ms=tri["ms"], max_abs_err=worst,
+                  visits=(rect["visits"], tri["visits"]),
+                  launches=tri["launches"])
+    del model, params, out, rect, tri
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_train(card: str, bg) -> dict:
     """Phase 4t: the families' step card against CPU, hymba-1.5b whole and
-    rwkv6-7b at full width cut to 8 layers, then the entry point."""
+    rwkv6-7b at full width cut to 8 layers, the causal schemes at S 4,096,
+    then the entry point."""
     out = {"families": timed("4t families", phase_train_families, card, bg)}
     for arch, cut in TRAIN_FULL:
         out[arch] = timed(f"4t {arch}", train_full, arch, cut, card)
+    out["schemes"] = timed("4t schemes", train_schemes, card)
     out["entry"] = timed("4t entry", phase_train_entry, card)
     return out
 
@@ -4195,17 +4338,22 @@ def phase_train(card: str, bg) -> dict:
 def roofline_record(arch: str, mode: str) -> dict:
     """The dry run's record of a step an earlier phase times, counted on
     ``meta`` with a one-chip mesh: ``mode`` "train" (``TRAIN_FULL``'s cut,
-    B ``TRAIN_B`` x S ``TRAIN_S``) or "prefill" (an admit of 4 x 2048, the
+    B ``TRAIN_B`` x S ``TRAIN_S``), "tri" (the step of
+    :func:`train_schemes` in the ``tri`` scheme, in ``TRI_DTYPE``) or
+    "prefill" (an admit of 4 x 2048, the
     cache's 16 slots of headroom). Run in a worker process
     (``_cpu_job("roofline <arch> <mode>")``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     if mode == "train":
         S, B, over = TRAIN_S, TRAIN_B, dict(TRAIN_FULL)[arch]
+    elif mode == "tri":
+        S, B, over = TRI_S, TRI_B, dict(causal_scheme="tri", dtype=TRI_DTYPE)
     else:
         S, B, over = 2048, 4, dict(cache_headroom=16)
+    step = "train" if mode == "tri" else mode
     t0 = time.perf_counter()
-    rec = dryrun.run_cell(arch, ShapeConfig(mode, S, B, mode), "single",
+    rec = dryrun.run_cell(arch, ShapeConfig(step, S, B, step), "single",
                           overrides=over or None, mesh=ONE_CHIP,
                           verbose=False)
     rec["count_s"] = time.perf_counter() - t0
@@ -4224,7 +4372,8 @@ def step_bound(rec: dict, mode: str, measured_ms: float, card: str) -> dict:
     bound_ms = max(r["t_compute_s"], r["t_memory_s"]) * 1e3
     mfu = r["model_flops"] / PEAK_FLOPS_BF16 / (measured_ms / 1e3)
     print(f"[roofline] {arch} {mode} ({rec['cut'] or 'whole'}, B {rec['B']} "
-          f"x S {rec['S']}, bfloat16): counted {rec['count']['flops']} FLOPs "
+          f"x S {rec['S']}, {(rec['cut'] or {}).get('dtype', 'bfloat16')}): "
+          f"counted {rec['count']['flops']} FLOPs "
           f"and {rec['count']['dot_bytes']} dot bytes on meta in "
           f"{rec['count_s']:.1f} s (a worker process); t_compute "
           f"{r['t_compute_s'] * 1e3:.3f} ms, t_memory "
@@ -4245,7 +4394,8 @@ def step_bound(rec: dict, mode: str, measured_ms: float, card: str) -> dict:
 def phase_roofline(card: str, trained: dict, admitted: dict,
                    bg: Background) -> dict:
     """Phase 4r: the dry run's bounds of the steps phases 4t and 4s timed
-    (:func:`step_bound`, the counts taken in the worker processes); then ``launch/dryrun.py`` for smollm-135m's
+    (:func:`step_bound`, the counts taken in the worker processes; the tri
+    step of :func:`train_schemes` from its own count); then ``launch/dryrun.py`` for smollm-135m's
     train_4k on the two-pod mesh into a temporary directory, whose record
     ``simulate workload`` runs on the card and on the CPU: equal lines, the
     all-reduce bytes nonzero, ``maxmin_rates`` launched."""
@@ -4255,6 +4405,11 @@ def phase_roofline(card: str, trained: dict, admitted: dict,
     for arch, _ in TRAIN_FULL:
         out[f"{arch} train"] = step_bound(bg.get(f"roofline {arch} train"),
                                           "train", trained[arch]["ms"], card)
+    # the tri step of phase 4t: its loss and gradients, no optimizer, so
+    # the step's count (which adds no product for AdamW) bounds it
+    out[f"{TRI_ARCH} tri"] = step_bound(bg.get(f"roofline {TRI_ARCH} tri"),
+                                        "train (tri)",
+                                        trained["schemes"]["tri_ms"], card)
     for arch in ROOFLINE_ADMITS:
         out[f"{arch} admit"] = step_bound(
             bg.get(f"roofline {arch} prefill"), "prefill",

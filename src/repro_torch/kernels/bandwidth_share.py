@@ -6,14 +6,16 @@ leading lane dimension. Two kernels, picked in the source by (F, L) alone:
 flow order is always left to right, and ``maxmin_kernel`` (a CTA per lane)
 for the rest. The wrapper checks device, dtype, shape and contiguity, checks
 the flow order and the shared memory once per (F, L, order), allocates the
-output with ``torch.empty``, launches on the current stream, raises if the
-launch was refused or the shape exceeds what the kernel takes, and adds one
-to :data:`LAUNCHES` and to the kernel's entry of :data:`KERNELS`. It takes
-CUDA tensors only; ``ops`` sends CPU tensors to the plain version in
-``ref``.
+output with ``torch.empty`` (and, for a lane whose incidence does not fit
+one block's shared memory, the kernel's global workspace), launches on the
+current stream, raises if the launch was refused or the shape exceeds what
+the kernel takes, and adds one to :data:`LAUNCHES` and to the kernel's
+entry of :data:`KERNELS`. It takes CUDA tensors only; ``ops`` sends CPU
+tensors to the plain version in ``ref``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -44,8 +46,8 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
 def _pack_order(order: FlowOrder, n_flows: int,
                 max_blocks: int) -> tuple[int, ...]:
     """Check a flow-sum order against what the kernel takes; return its
-    block order as byte fields of four unsigned 64-bit words (block k in
-    byte k % 8 of word k // 8)."""
+    block order as byte fields of ``max_blocks / 8`` unsigned 64-bit words
+    (block k in byte k % 8 of word k // 8)."""
     V, blocks, chains, W, trailing = order
     n_blocks, tail = V // 8, n_flows - V - trailing
     ok = (V % 8 == 0 and 0 <= V <= n_flows and n_blocks <= max_blocks
@@ -60,32 +62,35 @@ def _pack_order(order: FlowOrder, n_flows: int,
         raise ValueError(f"maxmin_rates: {order} is not a flow order the "
                          f"kernel takes for {n_flows} flows (at most "
                          f"{max_blocks} blocks of 8)")
-    words = [0] * 4
+    words = [0] * (max_blocks // 8)
     for k, b in enumerate(blocks):
         words[k // 8] |= b << (8 * (k % 8))
     return tuple(words)
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(n_flows: int, n_links: int,
-          order: FlowOrder) -> tuple[tuple[int, ...], str]:
-    """The packed flow order and the kernel for (F, L, order), checked once:
-    the warp kernel sums left to right only, the block kernel's lane must
-    fit one block's shared memory."""
+def _plan(n_flows: int, n_links: int, order: FlowOrder):
+    """The packed flow order (a ctypes array), the kernel and the floats of
+    global workspace a lane takes for (F, L, order), checked once: the warp
+    kernel sums left to right only, the block kernel's lane state must fit
+    one block's shared memory (its incidence goes to the workspace where it
+    does not)."""
     lib = build.library("bandwidth_share")
+    n_words = lib.maxmin_max_order_blocks() // 8
     if lib.maxmin_takes_warp(n_flows, n_links):
         if order != LEFT_TO_RIGHT:
             raise ValueError(f"maxmin_rates: {n_flows} flows over {n_links} "
                              f"links run the warp kernel, which sums left "
                              f"to right only, got {order}")
-        return (0, 0, 0, 0), "maxmin_warp_kernel"
+        return (ctypes.c_ulonglong * n_words)(), "maxmin_warp_kernel", 0
     need = lib.maxmin_smem_bytes(n_flows, n_links)
     if need > lib.maxmin_max_smem():
         raise ValueError(
             f"maxmin_rates: {n_flows} flows over {n_links} links need {need} "
             f"B of shared memory; one block holds {lib.maxmin_max_smem()}")
-    return (_pack_order(order, n_flows, lib.maxmin_max_order_blocks()),
-            "maxmin_kernel")
+    words = _pack_order(order, n_flows, lib.maxmin_max_order_blocks())
+    return ((ctypes.c_ulonglong * n_words)(*words), "maxmin_kernel",
+            lib.maxmin_work_floats(n_flows, n_links))
 
 
 def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
@@ -102,11 +107,13 @@ def maxmin_rates(inc: torch.Tensor, bw: torch.Tensor, active: torch.Tensor,
     _check("inc", inc, torch.float32, (B, F, L))
     _check("bw", bw, torch.float32, (B, L))
     _check("active", active, torch.bool, (B, F))
-    packed, kernel = _plan(F, L, order)
+    packed, kernel, work_floats = _plan(F, L, order)
     out = torch.empty((B, F), dtype=torch.float32, device=inc.device)
+    work = (torch.empty(B * work_floats, dtype=torch.float32,
+                        device=inc.device).data_ptr() if work_floats else None)
     err = build.library("bandwidth_share").launch_maxmin_rates(
-        inc.data_ptr(), bw.data_ptr(), active.data_ptr(), out.data_ptr(), B,
-        F, L, order.head, *packed, order.chains, order.tail_lanes,
+        inc.data_ptr(), bw.data_ptr(), active.data_ptr(), out.data_ptr(),
+        work, B, F, L, order.head, packed, order.chains, order.tail_lanes,
         order.trailing, torch._C._cuda_getCurrentRawStream(inc.get_device()))
     if err != 0:
         raise RuntimeError(f"maxmin_rates: CUDA launch failed with error "

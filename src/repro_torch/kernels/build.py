@@ -34,9 +34,11 @@ _SIGNATURES = {
         "max_keys": [],
     },
     "bandwidth_share": {
-        "launch_maxmin_rates": [_P, _P, _P, _P, _I, _I, _I, _I]
-                               + [ctypes.c_ulonglong] * 4 + [_I, _I, _I, _P],
+        "launch_maxmin_rates": [_P] * 5 + [_I] * 4
+                               + [ctypes.POINTER(ctypes.c_ulonglong)]
+                               + [_I, _I, _I, _P],
         "maxmin_smem_bytes": [_I, _I],
+        "maxmin_work_floats": [_I, _I],
         "maxmin_max_smem": [],
         "maxmin_max_order_blocks": [],
         "maxmin_takes_warp": [_I, _I],
@@ -56,6 +58,7 @@ _SIGNATURES = {
     },
 }
 _RESTYPES = {"maxmin_smem_bytes": ctypes.c_longlong,
+             "maxmin_work_floats": ctypes.c_longlong,
              "gla_smem_bytes": ctypes.c_longlong}
 
 _libs: dict[str, ctypes.CDLL] = {}

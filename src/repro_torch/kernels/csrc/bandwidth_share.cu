@@ -32,7 +32,12 @@
 // maxmin_kernel: the lane's incidence in shared memory (row stride L or
 // L + 1, odd, so the per-flow pass over links is free of bank conflicts);
 // per link the count and the sum (one thread per link), a block min for
-// the level, then per flow the freeze (one thread per flow).
+// the level, then per flow the freeze (one thread per flow). A lane whose
+// incidence does not fit one block's shared memory (F * (L | 1) floats
+// past about 227 KB: 256 flows over 256 links) keeps the same rows, masked
+// the same way, in a global workspace the host allocates (B * F * (L | 1)
+// floats); the rest of its state stays in shared memory. The arithmetic,
+// and so the bits, are the same.
 //
 // What bounds them on this card: a call moves 4 * (F * L + L + F) + F
 // bytes per lane and does about 4 * F * L float operations per round
@@ -64,7 +69,7 @@ constexpr float EPS = 1e-6f;
 constexpr float BIG = 3.0e38f;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_ORDER_BLOCKS = 32;   // a byte per block index, 4 u64 words
+constexpr int MAX_ORDER_BLOCKS = 64;   // a byte per block index, 8 u64 words
 // one block's shared memory on H100 less maxmin_kernel's static s_min
 constexpr int MAX_SMEM = 232448 - WARPS * (int)sizeof(float);
 constexpr int WARP_MAX = 32;           // flows and links the warp kernel takes
@@ -72,11 +77,24 @@ constexpr int WARP_LANES = 8;          // lanes (warps) a CTA of the warp kernel
 
 __host__ __device__ int row_stride(int L) { return L | 1; }
 
+// the lane's state besides its incidence: rate * frozen, rate (F each),
+// fair, bw (L each) as float; active, frozen (F each) as bytes
+__host__ __device__ size_t state_bytes(int F, int L) {
+  return sizeof(float) * (2 * (size_t)F + 2 * (size_t)L) + 2 * (size_t)F;
+}
+
+__host__ __device__ size_t inc_bytes(int F, int L) {
+  return sizeof(float) * (size_t)F * row_stride(L);
+}
+
+// the incidence in shared memory where the lane fits a block, else only
+// the state (the incidence in the global workspace)
+__host__ __device__ bool inc_in_smem(int F, int L) {
+  return inc_bytes(F, L) + state_bytes(F, L) <= (size_t)MAX_SMEM;
+}
+
 __host__ __device__ size_t smem_bytes(int F, int L) {
-  // inc (F * ld), rate * frozen, rate (F each), fair, bw (L each) as float;
-  // active, frozen (F each) as bytes
-  return sizeof(float) * ((size_t)F * row_stride(L) + 2 * (size_t)F +
-                          2 * (size_t)L) + 2 * (size_t)F;
+  return state_bytes(F, L) + (inc_in_smem(F, L) ? inc_bytes(F, L) : 0);
 }
 
 __device__ __forceinline__ float min_nan(float a, float b) {
@@ -147,12 +165,13 @@ __device__ float frozen_sum(const float* inc, int ld, const float* rf, int F,
 __global__ void __launch_bounds__(THREADS)
 maxmin_kernel(const float* __restrict__ inc, const float* __restrict__ bw,
               const uint8_t* __restrict__ active, float* __restrict__ out,
-              int F, int L, int V, BlockOrder order, int chains,
-              int W, int T) {
+              float* __restrict__ work, int F, int L, int V,
+              BlockOrder order, int chains, int W, int T) {
   extern __shared__ float smem[];
   const int ld = row_stride(L);
-  float* s_inc = smem;
-  float* s_rf = s_inc + (size_t)F * ld;
+  // work: the global rows of a lane whose incidence is not in smem
+  float* s_inc = work ? work + (size_t)blockIdx.x * F * ld : smem;
+  float* s_rf = work ? smem : s_inc + (size_t)F * ld;
   float* s_rate = s_rf + F;
   float* s_fair = s_rate + F;
   float* s_bw = s_fair + L;
@@ -321,6 +340,14 @@ long long maxmin_smem_bytes(int n_flows, int n_links) {
   return (long long)smem_bytes(n_flows, n_links);
 }
 
+// Floats of global workspace a lane of (F, L) takes: 0 where its incidence
+// fits shared memory, else F * (L | 1) (the block kernel only).
+long long maxmin_work_floats(int n_flows, int n_links) {
+  if (takes_warp(n_flows, n_links) || inc_in_smem(n_flows, n_links))
+    return 0;
+  return (long long)n_flows * row_stride(n_links);
+}
+
 int maxmin_max_smem() { return MAX_SMEM; }
 
 int maxmin_max_order_blocks() { return MAX_ORDER_BLOCKS; }
@@ -341,20 +368,23 @@ int maxmin_warp_blocks_per_sm() {
 }
 
 // inc (B, F, L) f32, bw (B, L) f32, active (B, F) bool (one byte) -> out
-// (B, F) f32. (n_head, order0..3, chains, tail_lanes, trailing): the
-// flow-sum order of kernels/ref.py::FlowOrder, n_head a multiple of 8 up to
-// 8 * MAX_ORDER_BLOCKS (0: left to right), byte k % 8 of order<k / 8> the
-// block summed k-th. F <= 32 and L <= 32 run maxmin_warp_kernel and take
-// left to right only; the rest run maxmin_kernel.
+// (B, F) f32; work: B * maxmin_work_floats(F, L) floats of device memory
+// (null where that is 0). (n_head, order, chains, tail_lanes, trailing):
+// the flow-sum order of kernels/ref.py::FlowOrder, n_head a multiple of 8
+// up to 8 * MAX_ORDER_BLOCKS (0: left to right), order a host array of
+// MAX_ORDER_BLOCKS / 8 words, byte k % 8 of word k / 8 the block summed
+// k-th. F <= 32 and L <= 32 run maxmin_warp_kernel and take left to right
+// only; the rest run maxmin_kernel.
 int launch_maxmin_rates(const float* inc, const float* bw,
-                        const uint8_t* active, float* out, int n_lanes,
-                        int n_flows, int n_links, int n_head,
-                        unsigned long long order0, unsigned long long order1,
-                        unsigned long long order2, unsigned long long order3,
-                        int chains, int tail_lanes, int trailing,
-                        void* stream) {
-  const BlockOrder order{{order0, order1, order2, order3}};
+                        const uint8_t* active, float* out, float* work,
+                        int n_lanes, int n_flows, int n_links, int n_head,
+                        const unsigned long long* order_words, int chains,
+                        int tail_lanes, int trailing, void* stream) {
+  BlockOrder order;
+  for (int k = 0; k < MAX_ORDER_BLOCKS / 8; ++k)
+    order.w[k] = order_words ? order_words[k] : 0ull;
   const size_t smem = smem_bytes(n_flows, n_links);
+  const bool need_work = maxmin_work_floats(n_flows, n_links) > 0;
   const int tail = n_flows - n_head - trailing;
   if (n_lanes < 1 || n_flows < 1 || n_links < 1 || smem > MAX_SMEM ||
       n_head < 0 || n_head % 8 != 0 || tail < 0 ||
@@ -364,7 +394,8 @@ int launch_maxmin_rates(const float* inc, const float* bw,
        tail_lanes != 8) ||
       (tail_lanes > 1 &&
        (tail < tail_lanes || tail % tail_lanes != 0 || n_head == 0)) ||
-      (n_head == 0 && (chains != 1 || trailing != 0)) || trailing < 0)
+      (n_head == 0 && (chains != 1 || trailing != 0)) || trailing < 0 ||
+      (need_work && work == nullptr))
     return (int)cudaErrorInvalidValue;
   if (takes_warp(n_flows, n_links)) {
     if (n_head != 0) return (int)cudaErrorInvalidValue;
@@ -385,8 +416,8 @@ int launch_maxmin_rates(const float* inc, const float* bw,
     configured = smem;
   }
   maxmin_kernel<<<n_lanes, THREADS, smem, (cudaStream_t)stream>>>(
-      inc, bw, active, out, n_flows, n_links, n_head, order, chains,
-      tail_lanes, trailing);
+      inc, bw, active, out, need_work ? work : nullptr, n_flows, n_links,
+      n_head, order, chains, tail_lanes, trailing);
   return (int)cudaGetLastError();
 }
 

@@ -170,17 +170,21 @@ LEFT_TO_RIGHT = FlowOrder()
 # XLA:CPU's order for an unbatched ``inc.T @ x`` over F flows and L links,
 # read off its compiled matvec (jax 0.9.0) by tools/probe_flow_order.py at
 # every F = 2-256 and L = 1-128 (F = 43-128 at L = 1-64 by the unpacked
-# probe; the rest by the packed one). ``_UNBATCHED_ORDER[F]`` lists (first
-# L, last L, order). Every tree probed has the FlowOrder form: a head of
-# 32, 48 or 64 flows, or a multiple of 32 up to 256, in one of the block
-# orders below, then 1, 2, 4 or 8 tail lanes and up to 8 trailing flows;
-# the gaps between the ranges sum left to right. The probe found left to
-# right at every F <= 42. From F = 129 on the orders repeat every 32 flows:
-# F = H + r (H = 32 * (F // 32)) takes the ranges of F = 96 + r with a head
-# of H flows where F = 96 + r has 96 (H - 32 where it has 64), its blocks
-# in four runs from L = 9 on. At every F, L = 65-128 takes the order of L =
-# 64 (``_to_128``). F > 256 and L > 128 are not probed, and the port sums
-# them left to right (ROADMAP.md, section 3).
+# probe; the rest by the packed one), and past that at every F = 257-512
+# at L = 1-9, 64, 65, 128, 129 and 256, every F = 2-256 at L = 129 and
+# 256 (F >= 43 also at 130, 192 and 255), and seeded samples of the other
+# L up to 256. ``_UNBATCHED_ORDER[F]`` lists (first L, last L, order).
+# Every tree probed has the FlowOrder form: a head of 32, 48 or 64 flows,
+# or a multiple of 32 up to 512, in one of the block orders below, then 1,
+# 2, 4 or 8 tail lanes and up to 8 trailing flows; the gaps between the
+# ranges sum left to right. The probe found left to right at every F <=
+# 42. From F = 129 on the orders repeat every 32 flows: F = H + r (H = 32
+# * (F // 32)) takes the ranges of F = 96 + r with a head of H flows where
+# F = 96 + r has 96 (H - 32 where it has 64), its blocks in four runs from
+# L = 9 on (and at L = 1-8 past ``_ONE_CHAIN_HEAD``). At every F, L =
+# 65-256 takes the order of L = 64 (``_carry``). F > 512 and L > 256 are
+# not probed, and the port sums them left to right (ROADMAP.md, section
+# 3).
 def _head(n_flows: int, chains: int = 1) -> FlowOrder:
     """A head of ``n_flows`` (a multiple of 32) in XLA:CPU's block order:
     the blocks in four runs by residue mod 4, (0, 4, 8, ...), (1, 5, 9,
@@ -330,33 +334,51 @@ _UNBATCHED_ORDER = {F: tuple((lo, hi, head._replace(tail_lanes=W, trailing=T))
 }.items()}
 
 
+# The largest head XLA:CPU sums in one chain at L = 1-8 (read at every F =
+# 257-512); a larger head runs in four chains there, as every head does at
+# L >= 9. Every head of up to 256 flows fits one chain.
+_ONE_CHAIN_HEAD = {1: 320, 2: 448, 3: 352, 4: 352, 5: 320, 6: 320, 7: 320,
+                   8: 320}
+
+
 def _period_rows(F: int) -> tuple:
-    """The ranges of F = 129-256: those of F = 96 + F % 32 with the head of
+    """The ranges of F = 129-512: those of F = 96 + F % 32 with the head of
     96 (or 64) flows made one of H = 32 * (F // 32) (or H - 32), in one
-    chain up to L = 8 and in four at L = 9-64."""
+    chain up to L = 8 where the head is at most ``_ONE_CHAIN_HEAD[L]``,
+    else in four (always at L = 9-64)."""
     H, r = 32 * (F // 32), F % 32
     rows = []
     for lo, hi, order in _UNBATCHED_ORDER[96 + r]:
-        for a, b, chains in ((lo, min(hi, 8), 1), (max(lo, 9), min(hi, 64),
-                                                    4)):
-            if a <= b:
-                rows.append((a, b, _head(order.head + H - 96, chains)._replace(
-                    tail_lanes=order.tail_lanes, trailing=order.trailing)))
+        head = order.head + H - 96
+        for a, b in ([(L, L) for L in range(lo, min(hi, 8) + 1)]
+                     + [(max(lo, 9), min(hi, 64))]):
+            if a > b:
+                continue
+            chains = 1 if b <= 8 and head <= _ONE_CHAIN_HEAD[b] else 4
+            o = _head(head, chains)._replace(tail_lanes=order.tail_lanes,
+                                             trailing=order.trailing)
+            if rows and rows[-1][2] == o and rows[-1][1] == a - 1:
+                rows[-1] = (rows[-1][0], b, o)
+            else:
+                rows.append((a, b, o))
     return tuple(rows)
 
 
-_UNBATCHED_ORDER.update({F: _period_rows(F) for F in range(129, 257)})
+MAX_TABLED_FLOWS = 512
+MAX_TABLED_LINKS = 256
+_UNBATCHED_ORDER.update({F: _period_rows(F)
+                         for F in range(129, MAX_TABLED_FLOWS + 1)})
 
 
-def _to_128(rows: tuple) -> tuple:
-    """A flow count's last range of link counts, where it ends at L = 64,
-    carried on to L = 128: the probe read the L = 64 order at every L =
-    65-128 for every F = 43-256."""
+def _carry(rows: tuple) -> tuple:
+    """A flow count's last range of link counts, where it ends at L = 64 or
+    128, carried on to ``MAX_TABLED_LINKS``."""
     lo, hi, order = rows[-1]
-    return rows[:-1] + ((lo, 128, order),) if hi == 64 else rows
+    return (rows[:-1] + ((lo, MAX_TABLED_LINKS, order),) if hi in (64, 128)
+            else rows)
 
 
-_UNBATCHED_ORDER = {F: _to_128(rows) for F, rows in _UNBATCHED_ORDER.items()}
+_UNBATCHED_ORDER = {F: _carry(rows) for F, rows in _UNBATCHED_ORDER.items()}
 
 
 def flow_order(n_flows: int, n_links: int, n_lanes: int) -> FlowOrder:

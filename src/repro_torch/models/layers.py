@@ -168,14 +168,27 @@ def _divisor_chunk(n: int, c: int) -> int:
     return c
 
 
+def band(qi: int, cq: int, ck: int, window: int, n_k: int) -> range:
+    """The key chunks that causal (or sliding-window) query chunk ``qi``
+    meets: from the one holding position ``qi * cq - window + 1`` (0 with
+    no window) to the one holding ``(qi + 1) * cq - 1``. Where ``cq ==
+    ck`` this is the reference's ``tri`` schedule."""
+    lo = max(0, (qi * cq - window + 1) // ck) if window > 0 else 0
+    return range(lo, min(n_k, ((qi + 1) * cq - 1) // ck + 1))
+
+
 def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
-                      chunk_kv: int, valid=None):
-    """The reference's training attention (``_chunked_attention``, its
-    rectangular scheme, no offset) in plain PyTorch: q (b, sq, h, hd) over
-    k, v (b, skv, n_kv, hd), GQA by head grouping h = kv * group + g,
-    float32 online softmax over key chunks, masked scores -1e30, the keys
-    from ``valid`` on masked (default: every key valid). Returns (b, sq,
-    h, hd) float32."""
+                      chunk_kv: int, valid=None, scheme: str = "rect"):
+    """The reference's training attention (``_chunked_attention``, no
+    offset) in plain PyTorch: q (b, sq, h, hd) over k, v (b, skv, n_kv,
+    hd), GQA by head grouping h = kv * group + g, float32 online softmax
+    over key chunks, masked scores -1e30, the keys from ``valid`` on masked
+    (default: every key valid). ``scheme="rect"`` runs every query chunk
+    over every key chunk at once; ``"tri"`` (causal only, else ``rect``)
+    runs each query chunk over the key chunks of its :func:`band` alone,
+    one product a pair as the reference's unrolled schedule, and equals
+    ``rect`` (the chunks it skips are all masked). Returns (b, sq, h, hd)
+    float32."""
     b, sq, h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
@@ -183,13 +196,31 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
     n_q = sq // cq
     qr = q.float().reshape(b, n_q, cq, n_kv, g, hd)
     q_pos = torch.arange(sq, device=q.device).reshape(n_q, cq, 1)
-    m = torch.full((b, n_q, n_kv, g, cq), NEG_INF, device=q.device)
+    kf, vf = k.float().split(ck, dim=1), v.float().split(ck, dim=1)
+    if scheme == "tri" and causal:
+        outs = [_online(qr[:, qi:qi + 1], q_pos[qi:qi + 1],
+                        [(j * ck, kf[j], vf[j])
+                         for j in band(qi, cq, ck, window, skv // ck)],
+                        causal, window, valid)
+                for qi in range(n_q)]
+        out = torch.cat(outs, dim=1)
+    else:
+        out = _online(qr, q_pos, zip(range(0, skv, ck), kf, vf), causal,
+                      window, valid)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, hd)
+
+
+def _online(qr, q_pos, chunks, causal: bool, window: int, valid):
+    """The online softmax of query chunks qr (b, n_q, cq, n_kv, g, hd) at
+    positions q_pos (n_q, cq, 1) over key chunks (first position, k, v):
+    (b, n_q, n_kv, g, cq, hd) float32."""
+    b, n_q, cq, n_kv, g, hd = qr.shape
+    m = torch.full((b, n_q, n_kv, g, cq), NEG_INF, device=qr.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, n_q, n_kv, g, cq, hd), device=q.device)
-    for lo, kb, vb in zip(range(0, skv, ck), k.float().split(ck, dim=1),
-                          v.float().split(ck, dim=1)):
+    acc = torch.zeros((b, n_q, n_kv, g, cq, hd), device=qr.device)
+    for lo, kb, vb in chunks:
         s = torch.einsum("bqcngd,bknd->bqngck", qr, kb) * (1.0 / math.sqrt(hd))
-        kpos = torch.arange(lo, lo + ck, device=q.device)
+        kpos = torch.arange(lo, lo + kb.shape[1], device=qr.device)
         if causal:
             mask = kpos <= q_pos                             # (n_q, cq, ck)
             if window > 0:
@@ -204,20 +235,20 @@ def chunked_attention(q, k, v, *, causal: bool, window: int, chunk_q: int,
         acc = acc * corr[..., None] + torch.einsum("bqngck,bknd->bqngcd", p,
                                                    vb)
         m = m2
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, hd)
+    return acc / torch.clamp_min(l[..., None], 1e-30)
 
 
 def _flash(q, k, v, *, causal: bool, window: int = 0, chunk_q: int,
-           chunk_kv: int):
+           chunk_kv: int, scheme: str = "rect"):
     """(b, sq, h, hd) queries over (b, skv, n_kv, hd) keys and values
-    through ``ops.flash_attention``; returns (b, sq, h, hd). On ``meta``
-    (the dry run) it takes the reference's chunked form, whose products
-    the count reads (``roofline/count.py``)."""
+    through ``ops.flash_attention`` (whose kernel skips the key tiles
+    outside the band under either scheme); returns (b, sq, h, hd). On
+    ``meta`` (the dry run) it takes the reference's chunked form in
+    ``scheme``, whose products the count reads (``roofline/count.py``)."""
     if q.is_meta:
         return chunked_attention(q, k, v, causal=causal, window=window,
-                                 chunk_q=chunk_q, chunk_kv=chunk_kv).to(
-                                     q.dtype)
+                                 chunk_q=chunk_q, chunk_kv=chunk_kv,
+                                 scheme=scheme).to(q.dtype)
     b, sq, h, hd = q.shape
     out = ops.flash_attention(_heads_first(q), _heads_first(k),
                               _heads_first(v), causal=causal, window=window)
@@ -226,20 +257,20 @@ def _flash(q, k, v, *, causal: bool, window: int = 0, chunk_q: int,
 
 class FlashAttention(torch.autograd.Function):
     """:func:`_flash` forward (the kernel on the card), the gradient of
-    :func:`chunked_attention` at the same inputs backward."""
+    :func:`chunked_attention` in the same ``scheme`` at the same inputs
+    backward (under ``tri`` the band's chunks alone)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, chunk_q: int,
-                chunk_kv: int):
+                chunk_kv: int, scheme: str = "rect"):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, chunk_q=chunk_q,
-                        chunk_kv=chunk_kv)
-        return _flash(q, k, v, causal=causal, window=window,
-                      chunk_q=chunk_q, chunk_kv=chunk_kv)
+                        chunk_kv=chunk_kv, scheme=scheme)
+        return _flash(q, k, v, **ctx.args)
 
     @staticmethod
     def backward(ctx, grad):
-        return recompute_grads(ctx, chunked_attention, grad) + (None,) * 4
+        return recompute_grads(ctx, chunked_attention, grad) + (None,) * 5
 
 
 def recompute_grads(ctx, fn, *grads) -> tuple:
@@ -299,7 +330,8 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
     v_new = _proj(p, x, cfg, "v")
     if cache is None:
         out = FlashAttention.apply(q, k_new, v_new, causal, cfg.window,
-                                   cfg.attn_chunk_q, cfg.attn_chunk_kv)
+                                   cfg.attn_chunk_q, cfg.attn_chunk_kv,
+                                   cfg.causal_scheme)
     elif s == 1:
         cache_len, cdt = cache.k.shape[1], cache.k.dtype
         widx = (cache.length % cache_len).long().reshape(1)
@@ -311,7 +343,8 @@ def attention(p, x, cfg: ModelConfig, *, positions, causal: bool = True,
                                 cfg.attn_chunk_kv)
     else:
         out = _flash(q, k_new, v_new, causal=True, window=cfg.window,
-                     chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
+                     chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+                     scheme=cfg.causal_scheme)
         keep = min(cache.k.shape[1], s)
         cache.k[:, :keep] = k_new[:, s - keep:].to(cache.k.dtype)
         cache.v[:, :keep] = v_new[:, s - keep:].to(cache.v.dtype)

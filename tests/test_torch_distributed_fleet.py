@@ -104,7 +104,8 @@ def test_cli_distributed_and_run_devices(tmp_path):
          "--devices", "2", "--agents-per-device", "2", *ck,
          "--kill-after-window", "16"], capture_output=True, text=True,
         timeout=300,
-        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 OMP_NUM_THREADS="1"))   # one torch thread, as this process
     assert dead.returncode == -signal.SIGKILL, dead.stderr[-2000:]
     assert SimCheckpointer(str(tmp_path / "ck")).latest_step() == 16
     with pytest.raises(SystemExit, match="--resume and --migrate"):

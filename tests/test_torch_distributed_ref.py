@@ -13,9 +13,10 @@ two devices and 2 agents a device, plain and with ``--migrate``, must be
 the same.
 
 The reference's runs compile JAX engine code (about 15 s a configuration).
-Its runs across devices go to child processes of two cores each, started
-first, and its ``run_local`` and the port's runs take place in this
-process meanwhile; the file holds two tests (see test_torch_engine.py).
+Its runs across devices go to a child process of two cores a test (both
+CLI runs in one), started first, and its ``run_local`` and the port's runs
+take place in this process meanwhile; the file holds two tests (see
+test_torch_engine.py).
 """
 import concurrent.futures
 import inspect
@@ -63,18 +64,21 @@ for n in (2, 3):
 print(json.dumps({{"ok": True}}))
 """
 
-CHILD_CLI = PIN + """
+CHILD_CLI = PIN.format(first=0) + """
 import contextlib
 import io
 import sys
 from repro.launch import simulate as jsimulate
 
-sys.argv = ["simulate", "distributed", "--agents-per-device", "2", *{extra}]
-buf = io.StringIO()
-with contextlib.redirect_stdout(buf):
-    jsimulate.main()
-print(json.dumps({{"lines": [ln for ln in buf.getvalue().splitlines()
-                            if ln.startswith("[distributed]")]}}))
+lines = []
+for extra in {extras}:
+    sys.argv = ["simulate", "distributed", "--agents-per-device", "2", *extra]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        jsimulate.main()
+    lines += [ln for ln in buf.getvalue().splitlines()
+              if ln.startswith("[distributed]")]
+print(json.dumps({{"lines": lines}}))
 """
 
 
@@ -131,11 +135,11 @@ def test_grid_64_flows_equals_reference_run_distributed():
 
 def test_distributed_cli_lines_equal_reference():
     extras = ([], ["--migrate"])
-    ref_runs = children(*(CHILD_CLI.format(first=2 * i, extra=e)
-                          for i, e in enumerate(extras)))
+    # one child runs both reference CLIs (one JAX start-up)
+    [ref_run] = children(CHILD_CLI.format(extras=repr(extras)))
     got = []
     for extra in extras:
         got += simulate.main(["distributed", "--device", "cpu", "--devices",
                               "2", "--agents-per-device", "2", *extra])
-    assert got == [ln for r in ref_runs for ln in r.result()["lines"]]
+    assert got == ref_run.result()["lines"]
     assert "migrate_out=" in got[1] and "remote_msgs=" in got[0]

@@ -80,11 +80,23 @@ def _divisor(n: int, c: int) -> int:
     return c
 
 
-def _attention(cfg, sq: int, skv: int) -> tuple[int, int]:
+def _attention(cfg, sq: int, skv: int, causal: bool) -> tuple[int, int]:
     """(FLOPs, bytes) of the reference's chunked attention forward, float32:
-    per key chunk, q k^T and p v."""
+    per key chunk, q k^T and p v, over every query chunk at once; under
+    ``causal_scheme="tri"`` (causal only) per pair of a query chunk and a
+    key chunk of its band, key chunks (qi * cq - window + 1) // ck (0 with
+    no window) to qi (the smoke configs' chunk_q == chunk_kv)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     ck = _divisor(skv, cfg.attn_chunk_kv)
+    if cfg.causal_scheme == "tri" and causal:
+        cq = _divisor(sq, cfg.attn_chunk_q)
+        assert cq == ck
+        visits = sum(qi + 1 - (max(0, (qi * cq - cfg.window + 1) // ck)
+                               if cfg.window else 0)
+                     for qi in range(sq // cq))
+        q, kc, s = B * cq * h * hd, B * ck * kv * hd, B * cq * h * ck
+        return (visits * 4 * B * h * cq * ck * hd,
+                4 * visits * 2 * (q + kc + s))
     q, kc, s = B * sq * h * hd, B * ck * kv * hd, B * sq * h * ck
     return 4 * B * h * sq * skv * hd, 4 * (skv // ck) * 2 * (q + kc + s)
 
@@ -111,7 +123,7 @@ def _scan(cfg, s: int, mode: str) -> tuple[int, int, int, int]:
             *skip)
 
 
-def extra_work(arch: str, remat: str = "full") -> tuple[int, int]:
+def extra_work(arch: str, remat: str = "full", **over) -> tuple[int, int]:
     """(FLOPs, bytes) the port's training step does beyond the reference's.
 
     * ``layers.FlashAttention`` and ``linear_rnn.GlaScan`` recompute their
@@ -120,22 +132,28 @@ def extra_work(arch: str, remat: str = "full") -> tuple[int, int]:
     * With ``remat="full"`` the block's recompute runs them forward again
       (the reference's remat keeps its inner scans' residuals).
     * The port's scan backward skips three products a call (``_scan``).
+
+    ``over``: config overrides. With ``causal_scheme="tri"`` a causal
+    attention's recompute takes the band alone, and the reference's
+    attention is unrolled, no scan: its remat recomputes that forward as
+    the port's does, so only ``FlashAttention``'s recompute is extra.
     """
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch), **over)
     s = _seq(arch)
     passes = 2 if remat == "full" else 1
     if cfg.family == "encdec":
         d = cfg.decoder_len
-        attn = ([(s, s)] * cfg.encoder_layers
-                + [(d, d), (d, s)] * cfg.n_layers)
+        attn = ([(s, s, False)] * cfg.encoder_layers
+                + [(d, d, True), (d, s, False)] * cfg.n_layers)
     elif cfg.family == "ssm":
         attn = []
     else:
-        attn = [(s, s)] * cfg.n_layers
+        attn = [(s, s, True)] * cfg.n_layers
     flops = nbytes = 0
-    for sq, skv in attn:
-        f, b = _attention(cfg, sq, skv)
-        flops, nbytes = flops + passes * f, nbytes + passes * b
+    for sq, skv, causal in attn:
+        f, b = _attention(cfg, sq, skv, causal)
+        n = 1 if cfg.causal_scheme == "tri" and causal else passes
+        flops, nbytes = flops + n * f, nbytes + n * b
     if cfg.family in ("ssm", "hybrid"):
         f, b, skip_f, skip_b = _scan(cfg, s, "k" if cfg.family == "ssm"
                                      else "v")

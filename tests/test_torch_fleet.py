@@ -225,7 +225,8 @@ def test_sigkill_lane_through_the_cli(tmp_path):
         [sys.executable, "-m", "repro_torch.launch.simulate", *base, *ck,
          "--kill-after-window", "24"],
         capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 OMP_NUM_THREADS="1"))   # one torch thread, as this process
     assert dead.returncode == -signal.SIGKILL, dead.stderr[-2000:]
     assert "[run]" not in dead.stdout
     with open(tmp_path / "fleet.json") as f:

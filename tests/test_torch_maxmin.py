@@ -140,9 +140,9 @@ def test_one_lane_order_at_tabled_link_counts(F, L):
 def test_flow_order_is_the_kernels_contract():
     """One lane at a tabled (F, L) takes its tabled order, every other case
     left to right; each order is one the kernel takes: a permutation of the
-    head's 8-flow blocks (up to 32, packed a byte a block in four 64-bit
+    head's 8-flow blocks (up to 64, packed a byte a block in eight 64-bit
     words), runs that divide it, and a tail that divides into its
-    interleaved sums."""
+    interleaved sums. The table covers F = 43-512 at L = 1-256."""
     assert ref.flow_order(128, 4, 1) == ref._ORDER_96
     assert ref.flow_order(128, 1, 1) == ref._ORDER_128
     assert ref.flow_order(128, 64, 1) == ref._ORDER_128_CHAINS
@@ -151,27 +151,47 @@ def test_flow_order_is_the_kernels_contract():
         tail_lanes=4, trailing=4)
     assert ref.flow_order(60, 65, 1) == ref._ORDER_48._replace(
         tail_lanes=4)
-    assert ref.flow_order(60, 129, 1) == ref.LEFT_TO_RIGHT
-    assert ref.flow_order(128, 128, 1) == ref._ORDER_128_CHAINS
-    assert ref.flow_order(128, 129, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(60, 256, 1) == ref._ORDER_48._replace(
+        tail_lanes=4)
+    assert ref.flow_order(60, 257, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(128, 256, 1) == ref._ORDER_128_CHAINS
     assert ref.flow_order(256, 1, 1) == ref._head(256)
     assert ref.flow_order(256, 64, 1) == ref._head(256, chains=4)
-    assert ref.flow_order(256, 128, 1) == ref._head(256, chains=4)
-    assert ref.flow_order(256, 129, 1) == ref.LEFT_TO_RIGHT
-    assert ref.flow_order(257, 4, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(256, 256, 1) == ref._head(256, chains=4)
+    # past 256 flows: one chain up to L = 8 while the head is at most
+    # _ONE_CHAIN_HEAD[L] flows, four above
+    assert ref.flow_order(257, 4, 1) == ref._head(256)
+    assert ref.flow_order(320, 1, 1) == ref._head(320)
+    assert ref.flow_order(352, 1, 1) == ref._head(352, chains=4)
+    assert ref.flow_order(352, 2, 1) == ref._head(320)
+    assert ref.flow_order(384, 3, 1) == ref._head(352)
+    assert ref.flow_order(385, 3, 1) == ref._head(384, chains=4)
+    assert ref.flow_order(480, 2, 1) == ref._head(448)
+    assert ref.flow_order(481, 2, 1) == ref._head(480, chains=4)
+    assert ref.flow_order(512, 1, 1) == ref._head(512, chains=4)
+    assert ref.flow_order(512, 256, 1) == ref._head(512, chains=4)
+    assert ref.flow_order(512, 257, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(513, 4, 1) == ref.LEFT_TO_RIGHT
     assert ref.flow_order(42, 7, 1) == ref.LEFT_TO_RIGHT
+    assert ref.flow_order(42, 256, 1) == ref.LEFT_TO_RIGHT
+    assert sorted(ref._UNBATCHED_ORDER) == list(range(43, 513))
     for F, ranges in ref._UNBATCHED_ORDER.items():
+        assert ranges[-1][1] == (1 if F < 50 else 256), F
         for lo, hi, order in ranges:
-            assert 1 <= lo <= hi <= 128
-            words = bs._pack_order(order, F, 32)
+            assert 1 <= lo <= hi <= 256
+            assert order.head <= 512
+            words = bs._pack_order(order, F, 64)
+            assert len(words) == 8
             assert [(words[k // 8] >> (8 * (k % 8))) & 255
                     for k in range(order.head // 8)] == list(order.blocks)
+    with pytest.raises(ValueError, match="flow order"):
+        bs._pack_order(ref._head(512, chains=4), 512, 32)
     for bad in (ref.FlowOrder(48, (0, 1, 2, 3, 4, 4)),
                 ref.FlowOrder(48, (0, 1, 2, 3, 4, 5), chains=4),
                 ref.FlowOrder(48, (0, 1, 2, 3, 4, 5), tail_lanes=4),
                 ref.FlowOrder(0, (), tail_lanes=2)):
         with pytest.raises(ValueError, match="flow order"):
-            bs._pack_order(bad, 50, 32)
+            bs._pack_order(bad, 50, 64)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -4,6 +4,7 @@ reference's one-lane flow sum leaves left-to-right order: the probe of
 oracles and both one-agent engines. The two runs compile JAX engine code,
 so they sit in a file of at most 3 tests (see test_torch_engine.py).
 """
+import functools
 import numpy as np
 import pytest
 
@@ -55,10 +56,17 @@ def grid_64_flows():
                    work_per_mb=2.0)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_oracle():
+    """The reference's oracle on ``grid_64_flows``, run once a module."""
+    b, kw = grid_64_flows()
+    return j_run_sequential(*b.build(**kw))
+
+
 def test_port_oracle_equals_jax_oracle_at_64_flows(monkeypatch):
     b, kw = grid_64_flows()
     scen = b.build(**kw)
-    jw, jc, jtrace = j_run_sequential(*scen)
+    jw, jc, jtrace = jax_oracle()
     assert int(np.asarray(jw.flow_active).sum(1).max()) >= 56
     tw, tc, ttrace = run_sequential(*port_scenario(*scen))
     assert ttrace == jtrace
@@ -77,8 +85,7 @@ def test_one_agent_engine_equals_jax_at_64_flows():
     conflict fallback (every flow event hits the one region), as in the
     oracle; the port's fallback has one lane there too."""
     b, kw = grid_64_flows()
-    jstate, tstate, scen, _ = run_both(b, kw, trace_cap=1024)
+    jstate, tstate, _, _ = run_both(b, kw, trace_cap=1024)
     assert jstate["counters"][0, 20] > 0            # C_BATCH_FALLBACK
     assert_states_equal(tstate, jstate)
-    _w, _c, jtrace = j_run_sequential(*scen)
-    assert merged(tstate) == jtrace
+    assert merged(tstate) == jax_oracle()[2]

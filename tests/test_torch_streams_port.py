@@ -79,7 +79,9 @@ def test_cli_kill_and_resume(tmp_path, capsys):
     ck = ["--checkpoint-dir", d, "--checkpoint-every", "20"]
     whole = simulate.main(T0T1)
     assert len(whole) == 1 and "trace_drop=0" in whole[0]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the child keeps to one torch thread, as this process does
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     killed = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.simulate", *T0T1, *ck,
          "--kill-after-window", "40"],

@@ -2,8 +2,8 @@
 """Probe the reference's one-lane max-min flow sum against the port's order.
 
     PYTHONPATH=src python3 tools/probe_flow_order.py [--flows 43-128]
-        [--links 1-64] [--sample N] [--packed] [--fit] [--jobs 8]
-        [--save FILE.npz]
+        [--links 1-64] [--sample N] [--sample-from LO-HI] [--packed]
+        [--tree] [--fit] [--jobs 8] [--save FILE.npz]
 
 For every (F, L) in the ranges, reads the tree in which XLA:CPU sums
 ``inc.T @ x`` over F flows and L links on one lane
@@ -14,14 +14,20 @@ every shape whose trees differ, then a count. ``--links`` takes ranges and
 single values separated by commas (``1,2,8,9,64``); ``--sample N`` adds, for
 each F, N values of L drawn from a generator seeded with F out of the
 interiors of the ranges the table's L-ranges break at (3-7 and 10 up to the
-largest L given, less one). ``--packed`` reads L pairs a compiled call, pair
-k on link k (``tests/test_torch_flow_order.py::reference_meet``), about L
-times faster. ``--fit`` names, for each shape, the ``FlowOrder`` whose tree
-is the reference's (``fit_order``: the block order read off lane 0, then
+largest L given, less one), or out of ``--sample-from``. ``--packed`` reads
+L pairs a compiled call, pair k on link k
+(``tests/test_torch_flow_order.py::reference_meet``), about L times faster.
+``--tree`` (with ``--packed``) reads only the pairs that build the tree
+(``tree_meet``): the first flow of each node against the node's other
+flows, so about F log F pairs in place of F^2 / 2; every other count is
+the size of the node where the pair splits, and a read that is not a
+node's size stops the probe. ``--fit`` names, for each shape whose tree
+is not the port's, the ``FlowOrder`` whose tree is the reference's (``fit_order``: the block order read off lane 0, then
 every chain count, tail width and trailing count), or "none", and prints
 each F's L-ranges of one order. ``--save`` keeps every reference tree (the
 meet counts, uint16) for reading the forms off offline, and ``--load``
-fits the trees of such a file without probing. Exits 1 if any shape
+checks the trees of such a file against the port's order (and fits those
+that differ) without probing. Exits 1 if any shape
 differs.
 
 The unpacked probe is one call per pair because a batched probe
@@ -52,12 +58,13 @@ def _span(text: str) -> list[int]:
     return sorted(set(out))
 
 
-def _sampled(F: int, links: list[int], n: int) -> list[int]:
-    """``links`` and ``n`` more values of L, seeded by F, from 3-7 and
-    10 .. max(links) - 1."""
+def _sampled(F: int, links: list[int], n: int,
+             among: list[int] | None = None) -> list[int]:
+    """``links`` and ``n`` more values of L, seeded by F, from ``among``
+    (default 3-7 and 10 .. max(links) - 1)."""
     import numpy as np
     rng = np.random.default_rng(F)
-    pool = [L for L in (*range(3, 8), *range(10, max(links)))
+    pool = [L for L in (among or (*range(3, 8), *range(10, max(links))))
             if L not in links]
     extra = rng.choice(pool, size=min(n, len(pool)), replace=False)
     return sorted(set(links) | {int(L) for L in extra})
@@ -78,11 +85,41 @@ def packed_tree(F, L):
     return meet
 
 
+def tree_meet(F, L):
+    """The reference's meet counts of every pair, read node by node, L
+    pairs a call: a node of n flows whose first flow is a splits into a
+    and the flows that meet a under n leaves, and the rest, each of which
+    must meet a at exactly n. The left part keeps a, so only the right
+    part's first flow reads anew."""
+    import numpy as np
+    from test_torch_flow_order import reference_meet
+    meet = np.zeros((F, F), np.int64)
+    known, nodes = {}, [list(range(F))]
+    while nodes:
+        need = [(s[0], j) for s in nodes for j in s[1:]
+                if (s[0], j) not in known]
+        known.update(zip(need, reference_meet(F, L, need)))
+        split = []
+        for s in nodes:
+            n, a = len(s), s[0]
+            left = [a] + [j for j in s[1:] if known[(a, j)] < n]
+            right = [j for j in s[1:] if known[(a, j)] >= n]
+            if not right or any(known[(a, j)] != n for j in right):
+                raise RuntimeError(f"F={F} L={L}: flow {a}'s meets in a "
+                                   f"node of {n} are not a tree's")
+            meet[np.ix_(left, right)] = n
+            meet[np.ix_(right, left)] = n
+            split += [t for t in (left, right) if len(t) > 1]
+        nodes = split
+    return meet
+
+
 def _probe(job):
     import numpy as np
     from test_torch_network import port_sum_tree, reference_sum_tree
     F, L, packed = job
-    ref = packed_tree(F, L) if packed else reference_sum_tree(F, L)
+    ref = (packed_tree(F, L) if packed == "full" else tree_meet(F, L)
+           if packed == "tree" else reference_sum_tree(F, L))
     return F, L, ref.astype(np.uint16), bool((ref == port_sum_tree(F, L))
                                              .all())
 
@@ -176,6 +213,14 @@ def fit_order(meet):
     return None
 
 
+def _same(job):
+    import numpy as np
+    from test_torch_network import port_sum_tree
+    F, L, meet = job
+    return F, L, bool((np.asarray(meet, np.int64) == port_sum_tree(F, L))
+                      .all())
+
+
 def _fit(job):
     F, L, meet = job
     return F, L, fit_order(meet)
@@ -187,8 +232,12 @@ def main() -> int:
     p.add_argument("--links", default="1-64", help="L values, as LO-HI,...")
     p.add_argument("--sample", type=int, default=0,
                    help="per F, this many more L in the ranges' interiors")
+    p.add_argument("--sample-from", default=None,
+                   help="draw the sample from these L (LO-HI,...)")
     p.add_argument("--packed", action="store_true",
                    help="read L pairs a compiled call")
+    p.add_argument("--tree", action="store_true",
+                   help="with --packed, read only the pairs of each node")
     p.add_argument("--fit", action="store_true",
                    help="name each shape's order and print the L-ranges")
     p.add_argument("--jobs", type=int, default=1)
@@ -198,9 +247,11 @@ def main() -> int:
                    help="fit the trees of this .npz (from --save), no probe")
     args = p.parse_args()
     links = _span(args.links)
-    shapes = [(F, L, args.packed) for F in _span(args.flows)
-              for L in (_sampled(F, links, args.sample) if args.sample
-                        else links)]
+    among = _span(args.sample_from) if args.sample_from else None
+    packed = ("tree" if args.tree else "full") if args.packed else None
+    shapes = [(F, L, packed) for F in _span(args.flows)
+              for L in (_sampled(F, links, args.sample, among)
+                        if args.sample else links)]
     shapes.sort(key=lambda s: -s[0])          # the longest first
     t0 = time.perf_counter()
     trees, differ = {}, []
@@ -211,6 +262,11 @@ def main() -> int:
             with np.load(args.load) as blob:
                 trees = {tuple(map(int, k.split("_"))): blob[k]
                          for k in blob.files}
+            for F, L, same in pool.imap_unordered(
+                    _same, [(F, L, t) for (F, L), t in trees.items()]):
+                if not same:
+                    differ.append((F, L))
+                    print(f"differ F={F} L={L}", flush=True)
         for F, L, ref, same in pool.imap_unordered(
                 _probe, [] if args.load else shapes):
             trees[(F, L)] = ref
@@ -222,9 +278,14 @@ def main() -> int:
             np.savez_compressed(args.save, **{f"{F}_{L}": t
                                               for (F, L), t in trees.items()})
         if args.fit:
-            fits = {}
+            # a shape whose tree is the port's takes the port's order
+            from repro_torch.kernels.ref import flow_order
+            search = set(differ)
+            fits = {(F, L): flow_order(F, L, 1) for F, L in trees
+                    if (F, L) not in search}
             for F, L, order in pool.imap_unordered(
-                    _fit, [(F, L, t) for (F, L), t in trees.items()]):
+                    _fit, [(F, L, t) for (F, L), t in trees.items()
+                           if (F, L) in search]):
                 fits[(F, L)] = order
             for F in sorted({F for F, _ in fits}):
                 row = sorted((L, o) for (G, L), o in fits.items() if G == F)
